@@ -1,0 +1,20 @@
+"""repro_torch — the BFLC round in PyTorch, with hand-written CUDA kernels.
+
+A port of ``repro`` (the JAX reference package) for one NVIDIA H100.  The
+layout mirrors the reference module for module so each file's counterpart
+is easy to find:
+
+  kernels/   int8 chain codec + fused int8 aggregation (CUDA C++ under
+             ``kernels/csrc``, each beside a plain PyTorch version)
+  core/      chain, committee consensus, election, nodes, incentives,
+             attacks, aggregation
+  data/      the synthetic FEMNIST-like community (numpy, bit-equal to
+             the reference's generator)
+  configs/   the FEMNIST CNN over the reference's parameter dict
+  fl/        client local SGD and scoring, the round pipeline, the runtime
+  api.py     ``build_runtime``
+
+Parameters are plain dicts of tensors with the reference's key names and
+layouts (NHWC images, HWIO conv kernels, (in, out) dense weights).  This
+package imports torch and numpy only — never jax, and nothing of ``repro``.
+"""

@@ -1,0 +1,130 @@
+"""Update aggregation strategies.
+
+Port of ``repro/core/aggregation.py``:
+
+* ``fedavg``       — BFLC's aggregation over committee-validated updates
+  (weighted by scores) and the Basic-FL baseline;
+* ``cwmed``        — coordinate-wise median (Yin et al. 2018);
+* ``trimmed_mean`` — coordinate-wise trimmed mean.
+
+All operate on flattened (K, D) update stacks; ``aggregate_pytrees`` adapts
+trees.  The f32 reductions here are plain PyTorch (the reference's
+``use_kernels=False`` path); ``aggregate_quantized_blobs`` feeds chain-format
+int8 blobs to the fused kernel, so no f32 stack is materialized.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.numerics import recip_f32
+from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
+
+# the f32 Pallas kernels (fedavg_agg, cwmed, trimmed_mean) are not ported
+# yet: ROADMAP.md Queue 2, items 6-8
+_F32_KERNELS_LATER = (
+    "use_kernels=True on the f32 aggregation path needs the f32 fedavg / "
+    "cwmed / trimmed-mean kernels, which are not ported yet (ROADMAP.md, "
+    "Queue 2 items 6-8: f32 kernels and baselines)"
+)
+
+
+def flatten_updates(updates: Sequence) -> Tuple[torch.Tensor, Callable]:
+    """Update trees -> (stacked (K, D) f32 matrix, unravel fn); each row is
+    the tree's leaves in sorted-key order, as ``ravel_pytree`` walks it."""
+    if not updates:
+        raise ValueError("no updates to flatten")
+    _, unravel = ravel_pytree(updates[0])
+    stack = torch.stack([
+        torch.cat([l.reshape(-1).to(torch.float32) for l in tree_leaves(u)])
+        for u in updates
+    ])
+    return stack, unravel
+
+
+def normalize_weights(K: int, weights: Optional[Any], device="cpu") -> torch.Tensor:
+    """(K,) unnormalized (or None -> uniform) -> (K,) f32 summing to 1.
+
+    The one definition both aggregation paths share, so the f32 path and
+    the fused int8 kernel weigh committee scores identically."""
+    if weights is None:
+        w = torch.ones((K,), dtype=torch.float32, device=device)
+    else:
+        w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    return w / torch.clamp(w.sum(), min=1e-12)
+
+
+def fedavg(stack: torch.Tensor, weights: Optional[Any] = None,
+           use_kernels: bool = False) -> torch.Tensor:
+    """stack: (K, D); weights: (K,) unnormalized."""
+    if use_kernels:
+        raise NotImplementedError(_F32_KERNELS_LATER)
+    w = normalize_weights(stack.shape[0], weights, stack.device)
+    return torch.einsum("k,kd->d", w, stack)
+
+
+def cwmed(stack: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+    """Coordinate-wise median over K updates (mean of the middle two for
+    even K, as ``jnp.median``; ``torch.median`` would take the lower)."""
+    if use_kernels:
+        raise NotImplementedError(_F32_KERNELS_LATER)
+    K = stack.shape[0]
+    s = torch.sort(stack, dim=0).values
+    if K % 2 == 1:
+        return s[K // 2]
+    return 0.5 * (s[K // 2 - 1] + s[K // 2])
+
+
+def trimmed_mean(stack: torch.Tensor, trim: int,
+                 use_kernels: bool = False) -> torch.Tensor:
+    """Drop the `trim` largest and smallest per coordinate, mean the rest."""
+    K = stack.shape[0]
+    if not 0 <= 2 * trim < K:
+        raise ValueError(f"trim={trim} invalid for K={K}")
+    if use_kernels:
+        raise NotImplementedError(_F32_KERNELS_LATER)
+    s = torch.sort(stack, dim=0).values
+    return s[trim : K - trim].sum(dim=0) * recip_f32(K - 2 * trim)
+
+
+def aggregate_pytrees(
+    updates: Sequence,
+    method: str = "fedavg",
+    weights: Optional[Sequence[float]] = None,
+    trim: int = 1,
+    use_kernels: bool = False,
+):
+    stack, unravel = flatten_updates(updates)
+    if method == "fedavg":
+        agg = fedavg(stack, weights, use_kernels=use_kernels)
+    elif method == "cwmed":
+        agg = cwmed(stack, use_kernels=use_kernels)
+    elif method == "trimmed_mean":
+        agg = trimmed_mean(stack, trim, use_kernels=use_kernels)
+    else:
+        raise ValueError(method)
+    return unravel(agg)
+
+
+def aggregate_quantized_blobs(
+    blobs: Sequence[dict],
+    unravel,
+    method: str = "fedavg",
+    weights: Optional[Sequence[float]] = None,
+    trim: int = 1,
+):
+    """Aggregate straight from K chain-format int8 blobs ({"q","scales","d"})
+    through the fused kernel: one int8 read, no f32 stack."""
+    from repro_torch.kernels.ops import aggregate_quantized
+
+    q = torch.stack([b["q"] for b in blobs])
+    scales = torch.stack([b["scales"] for b in blobs])
+    flat = aggregate_quantized(q, scales, int(blobs[0]["d"]), method=method,
+                               weights=weights, trim=trim)
+    return unravel(flat)
+
+
+def apply_update(params, update, scale: float = 1.0):
+    """params + scale * update (tree add)."""
+    return tree_map(lambda p, u: p + scale * u.to(p.dtype), params, update)

@@ -1,0 +1,96 @@
+"""Client-side local training, batched across clients, and committee scoring.
+
+Port of ``repro/fl/client.py``.  The round's P trainers each run momentum
+SGD from the same global model; ``torch.func.vmap`` over the per-client
+program trains all of them in one batched pass per step (the reference
+``vmap``s a ``scan``; here the step loop is a Python loop inside the
+vmapped function).  Committee validation scores the (P updates x Q
+members) accuracy matrix: each candidate ``params + update_i`` is built
+once and all Q member batches run through it in one batched forward.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+from torch.func import grad, vmap
+
+from repro_torch.fl.adapter import ModelAdapter
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def make_one_client_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0):
+    """The single-client local-SGD program: (params, xs, ys) -> update.
+
+    xs: (steps, batch, ...), ys: (steps, batch)."""
+    loss_grad = grad(adapter.loss)
+
+    def one_client(params, xs, ys):
+        p = params
+        mu = tree_map(torch.zeros_like, params)
+        for step in range(xs.shape[0]):
+            g = loss_grad(p, xs[step], ys[step])
+            mu = tree_map(lambda m, gg: momentum * m + gg, mu, g)
+            p = tree_map(lambda pp, m: pp - lr * m, p, mu)
+        return tree_map(lambda a, b: a - b, p, params)
+
+    return one_client
+
+
+def make_local_train_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0):
+    """Returns train(params, xs, ys) batched over a leading client axis.
+
+    xs: (P, steps, batch, ...), ys: (P, steps, batch).  Output: the update
+    tree stacked over P (update = locally trained params - global params)."""
+    return vmap(make_one_client_fn(adapter, lr, momentum), in_dims=(None, 0, 0))
+
+
+def make_score_matrix_fn(adapter: ModelAdapter):
+    """Returns score(params, updates, val_x, val_y) -> (P, Q) accuracies.
+
+    updates: P-stacked tree; val_x: (Q, vb, ...), val_y: (Q, vb).  Entry
+    [i, j] = accuracy of (global + update_i) on member j's data — the
+    committee's minimized validation (§III.B).  Candidates run one at a
+    time, each against all Q member batches at once, which keeps the
+    activations of one candidate in memory rather than P of them."""
+    per_member = vmap(adapter.accuracy, in_dims=(None, 0, 0))
+
+    @torch.no_grad()
+    def score(params, updates, vx, vy):
+        P = tree_leaves(updates)[0].shape[0]
+        rows = []
+        for i in range(P):
+            candidate = tree_map(lambda p, u: p + u[i].to(p.dtype), params, updates)
+            rows.append(per_member(candidate, vx, vy))
+        return torch.stack(rows)
+
+    return score
+
+
+def make_eval_fn(adapter: ModelAdapter, device, eval_batch: int = 512):
+    """evaluate(params, images, labels) -> test accuracy, in host batches of
+    ``eval_batch`` moved to ``device`` one at a time."""
+
+    @torch.no_grad()
+    def evaluate(params, images: np.ndarray, labels: np.ndarray) -> float:
+        accs, n = [], len(labels)
+        for i in range(0, n, eval_batch):
+            x = torch.from_numpy(images[i : i + eval_batch]).to(device)
+            y = torch.from_numpy(labels[i : i + eval_batch]).to(device)
+            accs.append(float(adapter.accuracy(params, x, y))
+                        * min(eval_batch, n - i))
+        return sum(accs) / n
+
+    return evaluate
+
+
+def sample_client_batches(
+    rng: np.random.Generator,
+    images: np.ndarray,
+    labels: np.ndarray,
+    steps: int,
+    batch: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    idx = rng.integers(0, len(labels), (steps, batch))
+    return images[idx], labels[idx]

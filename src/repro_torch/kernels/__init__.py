@@ -1,0 +1,62 @@
+"""The port's kernels for the BFLC round's int8 chain path.
+
+One module per kernel family (``quantize``: codec quantize / dequantize;
+``fused_agg``: fused int8 aggregation), each holding the wrapper that
+launches the CUDA kernel of ``csrc/`` beside its plain PyTorch version,
+plus ``ops`` (the padded public layer) and ``_build`` (nvcc + ctypes).
+"""
+from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel
+from repro_torch.kernels.ops import (
+    Int8UpdateCodec,
+    aggregate_quantized,
+    dequantize,
+    dequantize_pytree,
+    padded_dim,
+    quantize,
+    quantize_pytree,
+    quantize_stack,
+)
+from repro_torch.kernels.quantize import (
+    dequantize_kernel,
+    quantize_kernel,
+    quantize_stack_kernel,
+)
+from repro_torch.kernels.tiling import BLOCK_D
+
+# every kernel wrapper, by the name its launch count is reported under
+KERNEL_WRAPPERS = {
+    "quantize": quantize_kernel,
+    "quantize_stack": quantize_stack_kernel,
+    "dequantize": dequantize_kernel,
+    "fused_agg": fused_agg_kernel,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "BLOCK_D",
+    "METHODS",
+    "KERNEL_WRAPPERS",
+    "Int8UpdateCodec",
+    "aggregate_quantized",
+    "dequantize",
+    "dequantize_kernel",
+    "dequantize_pytree",
+    "fused_agg_kernel",
+    "launch_counts",
+    "padded_dim",
+    "quantize",
+    "quantize_kernel",
+    "quantize_pytree",
+    "quantize_stack",
+    "quantize_stack_kernel",
+    "reset_launch_counts",
+]

@@ -1,0 +1,72 @@
+"""The port's entry points: CUDA by default, the CPU only on request, and
+every option the port does not have yet refused by name."""
+import pytest
+import torch
+
+from repro_torch.api import build_runtime
+from repro_torch.data import make_femnist_like
+from repro_torch.fl.adapter import femnist_adapter
+from repro_torch.fl.pipeline import STAGE_TIMING_KEYS
+from repro_torch.kernels import _build, launch_counts
+
+torch.set_num_threads(2)
+
+SMALL = dict(active_proportion=0.5, k_updates=3, local_steps=2,
+             local_batch=8, val_batch=16)
+
+
+@pytest.fixture(scope="module")
+def tiny_ds():
+    return make_femnist_like(num_clients=12, mean_samples=20, test_size=64,
+                             seed=2)
+
+
+def test_default_device_is_cuda_and_raises_without_it(tiny_ds):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_runtime(femnist_adapter(8), tiny_ds, SMALL)
+
+
+@pytest.mark.parametrize("kwargs, cfg, match", [
+    (dict(mesh=object()), {}, "Queue 1 item 11"),
+    (dict(tiers=2), {}, "Queue 1 item 9"),
+    (dict(schedule="async"), {}, "Queue 1 item 10"),
+    (dict(baseline=True), {}, "Queue 1 item 7"),
+    (dict(stages={"validator": "committee_int8"}),
+     dict(quantize_chain=True, use_kernels=True), "Queue 2 item 5"),
+    (dict(), dict(use_kernels=True), "Queue 2 items 6-8"),
+])
+def test_unported_options_raise_not_implemented(tiny_ds, kwargs, cfg, match):
+    with pytest.raises(NotImplementedError, match=match):
+        build_runtime(femnist_adapter(8), tiny_ds, {**SMALL, **cfg},
+                      device="cpu", **kwargs)
+
+
+def test_quantize_chain_requires_use_kernels(tiny_ds):
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        build_runtime(femnist_adapter(8), tiny_ds,
+                      {**SMALL, "quantize_chain": True}, device="cpu")
+
+
+def test_cpu_round_from_the_ports_own_init(tiny_ds):
+    before = launch_counts()
+    rt = build_runtime(femnist_adapter(8), tiny_ds,
+                       {**SMALL, "quantize_chain": True, "use_kernels": True},
+                       device="cpu")
+    log = rt.run_round(eval_test=True)
+    assert rt.chain.verify() and rt.chain.height == 1 + rt.cfg.k_updates + 1
+    assert 0.0 <= log.test_accuracy <= 1.0
+    assert set(rt.stage_timings[0]) == set(STAGE_TIMING_KEYS)
+    params = rt.global_params()
+    assert all(bool(torch.isfinite(v).all()) for p in params.values()
+               for v in p.values())
+    # CPU tensors take the plain versions: no kernel was launched
+    assert launch_counts() == before
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()

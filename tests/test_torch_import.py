@@ -1,0 +1,43 @@
+"""The PyTorch port stands alone: importing it pulls in neither jax nor any
+module of the JAX reference package, and no source line imports them."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch, repro_torch.api
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+# `import jax`, `from jax...`, `import repro`, `from repro.x import y`
+# (but not repro_torch)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_imports_jax_or_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files for m in _FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not offenders, offenders
