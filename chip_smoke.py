@@ -10,18 +10,34 @@ Phases, one JSON line each:
   build    nvcc of every CUDA source under src/repro_torch/kernels/csrc,
            in parallel, with the build seconds
   kernel   each kernel against its plain PyTorch version (run on CPU copies
-           of the same inputs) at the main path's shapes and at edge shapes
-           (ragged D, all-zero tiles, exact half steps, K in {1, 3, 8, 17},
-           quantize_out on and off for every method), with device times
-           (CUDA-graph replay between CUDA events) of the kernel, the plain
-           version and, where one PyTorch call computes the same function,
-           that call; ``eager_ms`` is the kernel's time per call from
-           Python, launch path included
-  round    three full-width BFLC rounds through repro_torch.api
-           (FEMNIST CNN width 32, 900 writers, quantize_chain=True), the
-           chain's verify(), test accuracy, a read-back of the last
-           round's update blocks re-aggregated by the plain path against
-           the committed model delta, and the kernels' launch counts
+           of the same inputs) at the shapes its path gives it and at edge
+           shapes (ragged D, all-zero tiles, exact half steps, K from 1 to
+           90, ties of +0.0 and -0.0, quantize_out on and off for every
+           method), with device times (CUDA-graph replay between CUDA
+           events) of the kernel, the plain version and, where one PyTorch
+           call computes the same function, that call; ``eager_ms`` is the
+           kernel's time per call from Python, launch path included
+  paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
+           900 writers, P = 54, Q = 36, k = 8) on one dataset, each path
+           with the launch counts set to 0 just before it and read just
+           after:
+           int8     3 rounds, int8 chain, f32 committee (the first slice):
+                    verify(), test accuracy, a read-back of the last round's
+                    update blocks re-aggregated by the plain path against
+                    the committed model delta
+           int8_committee  3 rounds, int8 chain, committee_int8 validator:
+                    verify(), the read-back, the packed blobs equal to the
+                    scorer's cached rows, one quantize_stack and one
+                    fused_candidates launch per cohort and none by the packer
+           f32_<method>  2 rounds each of fedavg, cwmed, trimmed_mean with
+                    use_kernels=True and an f32 chain: verify(), the
+                    committed model equal to the old model plus the plain
+                    reduction of the round's update blocks
+           baselines  build_runtime(..., baseline=True): 2 rounds each of
+                    Basic FL (fedavg) and CwMed over 90 clients, then 20
+                    steps of train_standalone: finite params that moved,
+                    test accuracies in [0, 1], no kernel launched (the
+                    baselines aggregate with the plain reductions)
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -40,6 +56,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 MAIN_K = 8
+MAIN_P = 54          # trainers scored per cohort at full width
+# kernel -> (source under src/repro_torch/kernels/csrc, the reference's
+# pallas_call it replaces)
+KERNELS = {
+    "quantize": ("quantize.cu", "src/repro/kernels/quantize.py:39"),
+    "quantize_stack": ("quantize.cu", "src/repro/kernels/quantize.py:74"),
+    "dequantize": ("quantize.cu", "src/repro/kernels/quantize.py:97"),
+    "fused_agg": ("fused_agg.cu", "src/repro/kernels/fused_agg.py:111"),
+    "fused_candidates": ("fused_score.cu", "src/repro/kernels/fused_score.py:55"),
+    "fedavg_agg": ("f32_agg.cu", "src/repro/kernels/fedavg_agg.py:39"),
+    "cwmed": ("f32_agg.cu", "src/repro/kernels/cwmed.py:67"),
+    "trimmed_mean": ("f32_agg.cu", "src/repro/kernels/cwmed.py:91"),
+}
 
 
 def emit(**fields) -> None:
@@ -119,6 +148,24 @@ def max_err(got, want) -> float:
 # ----------------------------------------------------------------------
 # inputs
 # ----------------------------------------------------------------------
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two float32 tensors (CPU copies)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def signed_zero_stack(K: int, D: int, seed: int):
+    """edge_stack with ties of +0.0 and -0.0 (half the rows each) in every
+    lane of the first tile, as a sign-flip attack leaves them."""
+    x = edge_stack(K, D, seed)
+    x[:, :2048] = 0.0
+    x[K // 2:, :2048] = -0.0
+    return x
+
+
 def edge_stack(K: int, D: int, seed: int):
     """(K, D) f32 on the card: update-sized normals, a first row of exact
     half steps (every tile's amax is 127, so its scale is exactly 1.0), and
@@ -167,8 +214,16 @@ def phase_kernels():
     """Each kernel against its plain version; returns the summary rows."""
     import torch
 
+    from repro_torch.core.aggregation import normalize_weights
     from repro_torch.kernels import ops
+    from repro_torch.kernels.cwmed import (
+        cwmed_kernel, cwmed_ref, trimmed_mean_kernel, trimmed_mean_ref,
+    )
+    from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel, fedavg_agg_ref
     from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
+    from repro_torch.kernels.fused_score import (
+        fused_candidates_kernel, fused_candidates_ref,
+    )
     from repro_torch.kernels.ops import padded_dim
     from repro_torch.kernels.quantize import (
         dequantize_kernel, dequantize_ref, quantize_kernel, quantize_ref,
@@ -193,17 +248,17 @@ def phase_kernels():
     w = torch.softmax(torch.randn((K,), generator=g, device="cuda"), 0)
     rows = []
 
-    def row(name, replaces, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
+    def row(name, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
             library=None, edge=None):
         got = fn(*gpu_args)
         torch.cuda.synchronize()
         err = max_err(got, plain(*cpu_args))
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         b_ms, b_by = bound_ms(nbytes, flops)
+        source, replaces = KERNELS[name]
         entry = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      + ("fused_agg.cu" if name == "fused_agg" else "quantize.cu"),
+            "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "tolerance": tol,
             "ms": time_ms(lambda: fn(*gpu_args)),
@@ -283,71 +338,120 @@ def phase_kernels():
                         worst = max(worst, err)
         return n, worst
 
+    def edge_candidates():
+        n = 0
+        for K_ in (1, 3, 17):
+            for D_ in (2048, 5000, 6145):
+                q, s, d = ops.quantize_stack(edge_stack(K_, D_, 31 * K_ + D_).cpu())
+                base = torch.randn((D_,), generator=torch.Generator().manual_seed(D_))
+                got = ops.candidates_from_quantized(base.cuda(), q.cuda(), s.cuda(), d)
+                want = ops.candidates_from_quantized(base, q, s, d)
+                check(same_bits(got, want), f"fused_candidates K={K_} D={D_}")
+                n += 1
+        return n, 0.0
+
+    def edge_f32():
+        """fedavg (same weights) and trimmed mean bit for bit, the median
+        by value; with +-0.0 ties every method by value."""
+        n = 0
+        for K_ in (1, 2, 3, 8, 17, 90):
+            for D_ in (2048, 5000, 6145):
+                for zeros in (False, True):
+                    xs = (signed_zero_stack if zeros else edge_stack)(K_, D_, K_ * 3 + D_)
+                    wts = normalize_weights(K_, torch.rand((K_,), device="cuda"), "cuda")
+                    trim = (K_ - 1) // 2
+                    pairs = {
+                        "fedavg": (ops.fedavg_agg(xs, wts),
+                                   ops.fedavg_agg(xs.cpu(), wts.cpu())),
+                        "cwmed": (ops.cwmed(xs), ops.cwmed(xs.cpu())),
+                        "trimmed_mean": (ops.trimmed_mean(xs, trim),
+                                         ops.trimmed_mean(xs.cpu(), trim)),
+                    }
+                    for method, (got, want) in pairs.items():
+                        if zeros or method == "cwmed":
+                            ok = torch.equal(got.cpu(), want)
+                        else:
+                            ok = same_bits(got, want)
+                        check(ok, f"{method} K={K_} D={D_} signed_zeros={zeros}")
+                        n += 1
+        return n, 0.0
+
     f32, i8 = 4, 1
-    row("quantize", "src/repro/kernels/quantize.py:39", quantize_kernel,
+    row("quantize", quantize_kernel,
         quantize_ref, (x.cpu(),), (x,), 0.0,
         Dpad * f32 + Dpad * i8 + nblk * f32, 6 * Dpad, edge=edge_quantize)
-    row("quantize_stack", "src/repro/kernels/quantize.py:74",
+    row("quantize_stack",
         quantize_stack_kernel, quantize_stack_ref, (stack.cpu(),), (stack,),
         0.0, K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad,
         edge=edge_quantize_stack)
     q1, s1 = q8[0].contiguous(), s8[0].contiguous()
-    row("dequantize", "src/repro/kernels/quantize.py:97", dequantize_kernel,
+    row("dequantize", dequantize_kernel,
         dequantize_ref, (q1.cpu(), s1.cpu()), (q1, s1), 0.0,
         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
         library=lambda: torch.mul(q1.view(-1, BLOCK_D), s1[:, None]),
         edge=edge_dequantize)
     fedavg_tol = 1e-6 * float(fused_agg_ref(q8.cpu(), s8.cpu(), w.cpu()).abs().max())
-    row("fused_agg", "src/repro/kernels/fused_agg.py:111",
+    row("fused_agg",
         lambda q, s, w_: fused_agg_kernel(q, s, w_),
         lambda q, s, w_: fused_agg_ref(q, s, w_),
         (q8.cpu(), s8.cpu(), w.cpu()), (q8, s8, w), fedavg_tol,
         K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32, 4 * K * Dpad,
         edge=edge_fused)
+
+    # the committee_int8 scorer's candidates: P rows of the padded width
+    P = MAIN_P
+    upd = torch.zeros((P, Dpad), device="cuda")
+    upd[:, :D] = torch.randn((P, D), generator=g, device="cuda") * 1e-3
+    qp, sp = quantize_stack_ref(upd.cpu())
+    qp, sp = qp.cuda(), sp.cuda()
+    base = torch.zeros((Dpad,), device="cuda")
+    base[:D] = torch.randn((D,), generator=g, device="cuda") * 0.05
+    row("fused_candidates", fused_candidates_kernel, fused_candidates_ref,
+        (base.cpu(), qp.cpu(), sp.cpu()), (base, qp, sp), 0.0,
+        P * Dpad * i8 + Dpad * f32 + P * nblk * f32 + P * Dpad * f32,
+        2 * P * Dpad,
+        library=lambda: torch.addcmul(base.view(1, nblk, BLOCK_D),
+                                      qp.view(P, nblk, BLOCK_D),
+                                      sp.view(P, nblk, 1)),
+        edge=edge_candidates)
+
+    # the f32 kernel path's stack: K unpadded rows (the kernels mask the edge)
+    xs = stack[:, :D].contiguous()
+    sort_ops = K * (K - 1) // 2 * D
+    half = torch.tensor(0.5, device="cuda")    # a device q: no host check
+    row("fedavg_agg", fedavg_agg_kernel, fedavg_agg_ref, (xs.cpu(), w.cpu()),
+        (xs, w), 0.0, K * D * f32 + K * f32 + D * f32, 2 * K * D,
+        library=lambda: torch.matmul(w, xs), edge=edge_f32)
+    row("cwmed", cwmed_kernel, cwmed_ref, (xs.cpu(),), (xs,), 0.0,
+        K * D * f32 + D * f32, sort_ops + D,
+        library=lambda: torch.quantile(xs, half, dim=0))
+    row("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
+        lambda a: trimmed_mean_ref(a, 1), (xs.cpu(),), (xs,), 0.0,
+        K * D * f32 + D * f32, sort_ops + (K - 1) * D)
     return rows
 
 
-def phase_round(rows):
+def run_rounds(path: str, rt, rounds: int) -> None:
     import torch
 
-    from repro_torch.api import build_runtime
-    from repro_torch.core.aggregation import fedavg, flatten_updates
-    from repro_torch.data.synthetic import make_femnist_like
-    from repro_torch.fl.adapter import femnist_adapter
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.tree import ravel_pytree
-
-    t0 = time.perf_counter()
-    ds = make_femnist_like(seed=1)
-    emit(phase="data", seconds=time.perf_counter() - t0,
-         clients=ds.num_clients, test=len(ds.test_labels))
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rt = build_runtime(femnist_adapter(width=32), ds,
-                       {"quantize_chain": True, "use_kernels": True, "seed": 0},
-                       device="cuda")
-    emit(phase="round_setup", seconds=time.perf_counter() - t0,
-         dim=rt.chain.codec.dim, p_trainers=rt.p_trainers, q_committee=rt.q_committee,
-         k=rt.cfg.k_updates)
-    rounds = 3
     for _ in range(rounds):
         t0 = time.perf_counter()
         log = rt.run_round()
         torch.cuda.synchronize()
-        emit(phase="round", seconds=time.perf_counter() - t0,
+        emit(phase="round", path=path, seconds=time.perf_counter() - t0,
              timings=rt.stage_timings[-1], log=log.__dict__)
-    t0 = time.perf_counter()
-    acc = rt.evaluate()
-    emit(phase="evaluate", seconds=time.perf_counter() - t0, test_accuracy=acc)
-    check(0.0 <= acc <= 1.0, f"test accuracy {acc}")
-    verified = rt.chain.verify()
-    emit(phase="verify", ok=verified, height=rt.chain.height)
-    check(verified, "chain.verify()")
-    check(rt.chain.height == 1 + rounds * (rt.cfg.k_updates + 1), "chain height")
 
-    # read back the last round's update blocks (dequantize kernel), then
-    # re-aggregate them with the plain fedavg and the packed scores
+
+def readback(path: str, rt, rounds: int) -> None:
+    """Decode the last round's update blocks (dequantize kernel), re-
+    aggregate them with the plain fedavg and the packed scores, and hold
+    that against the committed model delta, within one quantization step;
+    then publish the delta through the chain codec (quantize kernel)."""
+    import torch
+
+    from repro_torch.core.aggregation import fedavg, flatten_updates
+    from repro_torch.tree import ravel_pytree
+
     t = rounds - 1
     decoded = rt.chain.update_payloads_at_round(t)
     blobs = rt.chain.update_payloads_at_round(t, decode=False)
@@ -360,31 +464,252 @@ def phase_round(rows):
     delta = new - old
     step = max(float(b["scales"].max()) for b in blobs)
     replay_err = float((replay - delta).abs().max())
-    # a node publishing the committed delta through the chain codec
     blob = rt.chain.codec.encode(unravel(delta))
     codec_err = float((ravel_pytree(rt.chain.codec.decode(blob))[0]
                        - delta).abs().max())
     codec_step = float(blob["scales"].max())
-    counts = launch_counts()
-    emit(phase="readback", round=t, blocks=len(blobs),
+    emit(phase="readback", path=path, round=t, blocks=len(blobs),
          replay_max_abs_err=replay_err, quantization_step=step,
-         codec_max_abs_err=codec_err, codec_half_step=0.5 * codec_step,
-         launches=counts)
-    check(replay_err <= step, f"replayed aggregate off by {replay_err} > {step}")
+         codec_max_abs_err=codec_err, codec_half_step=0.5 * codec_step)
+    check(replay_err <= step, f"{path}: replayed aggregate off by "
+                              f"{replay_err} > {step}")
     check(codec_err <= 0.5 * codec_step * (1 + 1e-5) + 1e-12,
-          f"codec round trip off by {codec_err}")
-    need = {"quantize_stack": rounds, "fused_agg": rounds,
-            "dequantize": len(blobs) + 1, "quantize": 1}
+          f"{path}: codec round trip off by {codec_err}")
+
+
+def verify(path: str, rt, rounds: int) -> None:
+    verified = rt.chain.verify()
+    emit(phase="verify", path=path, ok=verified, height=rt.chain.height)
+    check(verified, f"{path}: chain.verify()")
+    check(rt.chain.height == 1 + rounds * (rt.cfg.k_updates + 1),
+          f"{path}: chain height")
+
+
+def counted(path: str, drive, need: dict):
+    """Drive one path with every launch count set to 0 just before it,
+    read the counts just after, and require ``need``'s minimums.  Returns
+    the counts and the runtime ``drive`` returned."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    rt = drive()
+    counts = launch_counts()
+    emit(phase="launches", path=path, launches=counts)
     for name, least in need.items():
-        check(counts[name] >= least,
-              f"{name} launched {counts[name]} times on the main path, "
-              f"want >= {least}")
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-    return rt
+        check(counts[name] >= least, f"{path}: {name} launched "
+                                     f"{counts[name]} times, want >= {least}")
+    return counts, rt
 
 
-def phase_profile(rt) -> None:
+def build(ds, cfg: dict, stages=None):
+    from repro_torch.api import build_runtime
+    from repro_torch.fl.adapter import femnist_adapter
+
+    return build_runtime(femnist_adapter(width=32), ds, {**cfg, "seed": 0},
+                         stages=stages, device="cuda")
+
+
+def path_int8(ds):
+    """The first slice's path: int8 chain, f32 committee scoring."""
+    rounds = 3
+
+    def drive():
+        t0 = time.perf_counter()
+        rt = build(ds, {"quantize_chain": True, "use_kernels": True})
+        emit(phase="round_setup", path="int8",
+             seconds=time.perf_counter() - t0, dim=rt.chain.codec.dim,
+             p_trainers=rt.p_trainers, q_committee=rt.q_committee,
+             k=rt.cfg.k_updates)
+        run_rounds("int8", rt, rounds)
+        t0 = time.perf_counter()
+        acc = rt.evaluate()
+        emit(phase="evaluate", path="int8", seconds=time.perf_counter() - t0,
+             test_accuracy=acc)
+        check(0.0 <= acc <= 1.0, f"test accuracy {acc}")
+        verify("int8", rt, rounds)
+        readback("int8", rt, rounds)
+        return rt
+
+    return counted("int8", drive, {"quantize_stack": rounds,
+                                   "fused_agg": rounds,
+                                   "dequantize": MAIN_K + 1, "quantize": 1})
+
+
+def path_int8_committee(ds):
+    """committee_int8: the committee scores the int8 view of each update
+    (quantize_stack + fused_candidates), and the packer stores those rows."""
+    import torch
+
+    from repro_torch.fl.pipeline import cached_row_stack, resolve
+    from repro_torch.kernels import launch_counts
+
+    rounds = 3
+    scorer = resolve("validator", "committee_int8")
+    packer = resolve("packer", "top_k_int8")
+    cohorts, packed, requantized = [], [], []
+
+    class CountingValidator:
+        def prepare(self, ctx):
+            scorer.prepare(ctx)
+
+        def __call__(self, ctx):
+            cohorts.append(ctx.cohort)
+            scorer(ctx)
+
+    def spy_packer(ctx):
+        """A round decided in its first cohort packs the scorer's cached
+        rows and quantizes nothing; only one that took more cohorts may
+        pack an uploader scored before the last cohort's cache clear, and
+        then the packer quantizes the packed stack once, as the reference
+        does."""
+        before = launch_counts()["quantize_stack"]
+        packer(ctx)
+        launched = launch_counts()["quantize_stack"] - before
+        cached = cached_row_stack(ctx)
+        requantized.append(cached is None)
+        check(cached is not None or ctx.cohort > 0,
+              f"round {ctx.round} was decided in its first cohort but its "
+              f"packed rows are not the scorer's cached rows")
+        check(launched == (1 if cached is None else 0),
+              f"the packer launched quantize_stack {launched} times")
+        q, s, _, _ = ctx.packed_quantized
+        if cached is not None:
+            check(torch.equal(q, cached[0]) and torch.equal(s, cached[1]),
+                  "packed blobs differ from the scorer's cached rows")
+        blocks = ctx.chain.updates_at_round(ctx.round)
+        check(all(torch.equal(b.payload["q"], q[i]) and
+                  torch.equal(b.payload["scales"], s[i])
+                  for i, b in enumerate(blocks)),
+              "chain blobs differ from the packed rows")
+        packed.append(len(blocks))
+
+    def drive():
+        rt = build(ds, {"quantize_chain": True, "use_kernels": True},
+                   stages={"validator": CountingValidator(),
+                           "packer": spy_packer})
+        run_rounds("int8_committee", rt, rounds)
+        verify("int8_committee", rt, rounds)
+        readback("int8_committee", rt, rounds)
+        return rt
+
+    counts, rt = counted("int8_committee", drive,
+                     {"quantize_stack": rounds, "fused_candidates": rounds,
+                      "fused_agg": rounds})
+    emit(phase="row_cache", path="int8_committee", cohorts=len(cohorts),
+         packed_blocks=packed, rounds_requantized=sum(requantized))
+    check(not all(requantized), "no round packed the scorer's cached rows")
+    check(counts["quantize_stack"] == len(cohorts) + sum(requantized),
+          f"quantize_stack launched {counts['quantize_stack']} times for "
+          f"{len(cohorts)} cohorts and {sum(requantized)} re-quantizing "
+          f"packers")
+    check(counts["fused_candidates"] == len(cohorts),
+          "fused_candidates not launched once per cohort")
+    check(packed == [MAIN_K] * rounds, f"packed blocks {packed}")
+    return counts, rt
+
+
+def path_f32(ds, method: str):
+    """use_kernels=True without quantize_chain: the f32 chain, aggregated by
+    the f32 kernel of ``method``; the committed model must equal the old
+    one plus the plain reduction of the round's update blocks (bit for bit
+    for fedavg and trimmed_mean, by value for the median)."""
+    import torch
+
+    from repro_torch.core.aggregation import (
+        apply_update, flatten_updates, normalize_weights,
+    )
+    from repro_torch.kernels.cwmed import cwmed_ref, trimmed_mean_ref
+    from repro_torch.kernels.fedavg_agg import fedavg_agg_ref
+    from repro_torch.tree import ravel_pytree
+
+    path = f"f32_{method}"
+    rounds = 2
+
+    def drive():
+        rt = build(ds, {"use_kernels": True, "aggregation": method})
+        run_rounds(path, rt, rounds)
+        verify(path, rt, rounds)
+        t = rounds - 1
+        stack, unravel = flatten_updates(rt.chain.update_payloads_at_round(t))
+        if method == "fedavg":
+            scores = [b.score for b in rt.chain.updates_at_round(t)]
+            plain = fedavg_agg_ref(stack, normalize_weights(
+                len(scores), scores, stack.device))
+        elif method == "cwmed":
+            plain = cwmed_ref(stack)
+        else:
+            plain = trimmed_mean_ref(stack, rt.cfg.trim)
+        replay = ravel_pytree(apply_update(rt.chain.model_at_round(t),
+                                           unravel(plain)))[0]
+        new = ravel_pytree(rt.chain.model_at_round(t + 1))[0]
+        exact = (torch.equal(replay, new) if method == "cwmed"
+                 else same_bits(replay, new))
+        emit(phase="replay", path=path, round=t, rows=stack.shape[0],
+             exact=exact, max_abs_err=float((replay - new).abs().max()))
+        check(exact, f"{path}: committed model differs from the plain replay")
+        return rt
+
+    kernel = "fedavg_agg" if method == "fedavg" else method
+    return counted(path, drive, {kernel: rounds})
+
+
+def path_baselines(ds) -> None:
+    """The committee-free baselines at full width through
+    build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
+    rounds each of 90 clients, then 20 steps of train_standalone.  Like the
+    reference's, the baselines aggregate with the plain reductions, so no
+    kernel may launch.  Checked: finite params that moved from the init,
+    test accuracies in [0, 1]."""
+    import torch
+
+    from repro_torch.api import build_runtime
+    from repro_torch.fl import train_standalone
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tree import ravel_pytree
+
+    def moved_and_finite(path, before, params):
+        after = ravel_pytree(params)[0]
+        check(bool(torch.isfinite(after).all()), f"{path}: params are finite")
+        check(not torch.equal(before, after), f"{path}: params did not move")
+
+    rounds = 2
+    reset_launch_counts()
+    for method in ("fedavg", "cwmed"):
+        path = f"baseline_{method}"
+        t0 = time.perf_counter()
+        rt = build_runtime(femnist_adapter(width=32), ds,
+                           {"aggregation": method, "seed": 0},
+                           baseline=True, device="cuda")
+        before = ravel_pytree(rt.params)[0].clone()
+        emit(phase="round_setup", path=path, seconds=time.perf_counter() - t0)
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            rt.run_round()
+            torch.cuda.synchronize()
+            emit(phase="round", path=path, seconds=time.perf_counter() - t0,
+                 timings=rt.stage_timings[-1])
+        moved_and_finite(path, before, rt.params)
+        acc = rt.evaluate()
+        emit(phase="evaluate", path=path, test_accuracy=acc)
+        check(0.0 <= acc <= 1.0, f"{path}: test accuracy {acc}")
+    adapter = femnist_adapter(width=32)
+    before = ravel_pytree(adapter.init(torch.Generator().manual_seed(0)))[0]
+    t0 = time.perf_counter()
+    params, accs = train_standalone(adapter, ds, steps=20, eval_every=10,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    emit(phase="standalone", steps=20, seconds=time.perf_counter() - t0,
+         test_accuracies=accs)
+    moved_and_finite("standalone", before.cuda(), params)
+    check(len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs),
+          f"standalone: test accuracies {accs}")
+    counts = launch_counts()
+    emit(phase="launches", path="baselines", launches=counts)
+    check(not any(counts.values()), "a baseline launched a kernel")
+
+
+def phase_profile(path: str, rt) -> None:
     """One more round under torch.profiler (``--profile`` only): device
     time by kernel, and the share of the round's wall time in which no
     kernel ran.  Profiling adds host time, so that share is an upper
@@ -403,7 +728,7 @@ def phase_profile(rt) -> None:
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(reverse=True)
     busy_s = sum(k[0] for k in kernels) / 1e6
-    emit(phase="profile", wall_s=wall, device_busy_s=busy_s,
+    emit(phase="profile", path=path, wall_s=wall, device_busy_s=busy_s,
          idle_share=1.0 - busy_s / wall, timings=rt.stage_timings[-1],
          top=[{"kernel": k[:120], "us": us, "count": n}
               for us, k, n in kernels[:20]])
@@ -420,9 +745,22 @@ def main(argv) -> int:
     phase_card()
     phase_build()
     rows = phase_kernels()
-    rt = phase_round(rows)
+    from repro_torch.data.synthetic import make_femnist_like
+
+    t0 = time.perf_counter()
+    ds = make_femnist_like(seed=1)
+    emit(phase="data", seconds=time.perf_counter() - t0,
+         clients=ds.num_clients, test=len(ds.test_labels))
+    paths = {"int8": path_int8(ds), "int8_committee": path_int8_committee(ds)}
+    for m in ("fedavg", "cwmed", "trimmed_mean"):
+        paths[f"f32_{m}"] = path_f32(ds, m)
+    path_baselines(ds)
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c, _ in paths.values())
+        check(r["launches"] > 0, f"{r['name']} was launched on no path")
     if "--profile" in argv:
-        phase_profile(rt)
+        for name, (_, rt) in paths.items():
+            phase_profile(name, rt)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit(kernels=[{k: r[k] for k in keys} for r in rows])

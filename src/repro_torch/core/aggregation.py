@@ -8,9 +8,12 @@ Port of ``repro/core/aggregation.py``:
 * ``trimmed_mean`` — coordinate-wise trimmed mean.
 
 All operate on flattened (K, D) update stacks; ``aggregate_pytrees`` adapts
-trees.  The f32 reductions here are plain PyTorch (the reference's
-``use_kernels=False`` path); ``aggregate_quantized_blobs`` feeds chain-format
-int8 blobs to the fused kernel, so no f32 stack is materialized.
+trees.  The f32 reductions are plain PyTorch unless ``use_kernels``,
+which sends them to the f32 kernels (``repro_torch.kernels.ops``); the
+plain median and trimmed mean are those kernels' plain versions
+(``repro_torch.kernels.cwmed``), so each reduction has one definition;
+``aggregate_quantized_blobs`` feeds chain-format int8 blobs to the fused
+kernel, so no f32 stack is materialized.
 """
 from __future__ import annotations
 
@@ -18,16 +21,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.numerics import recip_f32
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
-
-# the f32 Pallas kernels (fedavg_agg, cwmed, trimmed_mean) are not ported
-# yet: ROADMAP.md Queue 2, items 6-8
-_F32_KERNELS_LATER = (
-    "use_kernels=True on the f32 aggregation path needs the f32 fedavg / "
-    "cwmed / trimmed-mean kernels, which are not ported yet (ROADMAP.md, "
-    "Queue 2 items 6-8: f32 kernels and baselines)"
-)
 
 
 def flatten_updates(updates: Sequence) -> Tuple[torch.Tensor, Callable]:
@@ -58,9 +52,11 @@ def normalize_weights(K: int, weights: Optional[Any], device="cpu") -> torch.Ten
 def fedavg(stack: torch.Tensor, weights: Optional[Any] = None,
            use_kernels: bool = False) -> torch.Tensor:
     """stack: (K, D); weights: (K,) unnormalized."""
-    if use_kernels:
-        raise NotImplementedError(_F32_KERNELS_LATER)
     w = normalize_weights(stack.shape[0], weights, stack.device)
+    if use_kernels:
+        from repro_torch.kernels.ops import fedavg_agg
+
+        return fedavg_agg(stack, w)
     return torch.einsum("k,kd->d", w, stack)
 
 
@@ -68,12 +64,12 @@ def cwmed(stack: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
     """Coordinate-wise median over K updates (mean of the middle two for
     even K, as ``jnp.median``; ``torch.median`` would take the lower)."""
     if use_kernels:
-        raise NotImplementedError(_F32_KERNELS_LATER)
-    K = stack.shape[0]
-    s = torch.sort(stack, dim=0).values
-    if K % 2 == 1:
-        return s[K // 2]
-    return 0.5 * (s[K // 2 - 1] + s[K // 2])
+        from repro_torch.kernels.ops import cwmed as cwmed_kernel
+
+        return cwmed_kernel(stack)
+    from repro_torch.kernels.cwmed import cwmed_ref
+
+    return cwmed_ref(stack)
 
 
 def trimmed_mean(stack: torch.Tensor, trim: int,
@@ -83,9 +79,12 @@ def trimmed_mean(stack: torch.Tensor, trim: int,
     if not 0 <= 2 * trim < K:
         raise ValueError(f"trim={trim} invalid for K={K}")
     if use_kernels:
-        raise NotImplementedError(_F32_KERNELS_LATER)
-    s = torch.sort(stack, dim=0).values
-    return s[trim : K - trim].sum(dim=0) * recip_f32(K - 2 * trim)
+        from repro_torch.kernels.ops import trimmed_mean as trimmed_mean_kernel
+
+        return trimmed_mean_kernel(stack, trim=trim)
+    from repro_torch.kernels.cwmed import trimmed_mean_ref
+
+    return trimmed_mean_ref(stack, trim)
 
 
 def aggregate_pytrees(

@@ -1,4 +1,5 @@
 from repro_torch.fl.adapter import ModelAdapter, femnist_adapter
+from repro_torch.fl.baselines import FLConfig, FLTrainer, train_standalone
 from repro_torch.fl.pipeline import (
     REGISTRIES,
     RoundContext,
@@ -14,6 +15,9 @@ __all__ = [
     "BFLCConfig",
     "BFLCRuntime",
     "RoundLog",
+    "FLConfig",
+    "FLTrainer",
+    "train_standalone",
     "RoundContext",
     "RoundPipeline",
     "REGISTRIES",

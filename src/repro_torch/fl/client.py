@@ -6,7 +6,8 @@ program trains all of them in one batched pass per step (the reference
 ``vmap``s a ``scan``; here the step loop is a Python loop inside the
 vmapped function).  Committee validation scores the (P updates x Q
 members) accuracy matrix: each candidate ``params + update_i`` is built
-once and all Q member batches run through it in one batched forward.
+once and all Q member batches run through it in one batched forward.  The
+int8 scorer does the same for the chain codec's int8 view of each update.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch.fl.adapter import ModelAdapter
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
+from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
 
 
 def make_one_client_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0):
@@ -64,6 +66,32 @@ def make_score_matrix_fn(adapter: ModelAdapter):
             candidate = tree_map(lambda p, u: p + u[i].to(p.dtype), params, updates)
             rows.append(per_member(candidate, vx, vy))
         return torch.stack(rows)
+
+    return score
+
+
+def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
+    """Returns score(params, stack, vx, vy) -> ((P, Q) accuracies, q, scales).
+
+    ``stack``: (P, D) f32 flattened updates.  The stack is quantized with
+    the chain codec's tiling in one launch, so the committee scores exactly
+    the int8 blobs a quantizing packer stores, and the fused candidates
+    kernel rebuilds every candidate ``params + dequant(q_i)`` in one read
+    of the int8 rows.  Candidates are then scored one at a time, each
+    against all Q member batches, as in ``make_score_matrix_fn``.  The
+    per-row ``(q, scales)`` come back with the scores: they ARE the chain
+    blobs, so the packer reuses them.  ``unravel`` is the chain codec's, so
+    a scored candidate decodes exactly like a stored blob.  Port of the
+    reference's ``_int8_score_program`` / ``make_score_from_int8_fn``."""
+    per_member = vmap(adapter.accuracy, in_dims=(None, 0, 0))
+
+    @torch.no_grad()
+    def score(params, stack, vx, vy):
+        q, s, D = quantize_stack(stack)
+        cands = candidates_from_quantized(ravel_pytree(params)[0], q, s, D)
+        scores = torch.stack([per_member(unravel(cands[i]), vx, vy)
+                              for i in range(cands.shape[0])])
+        return scores, q, s
 
     return score
 

@@ -13,16 +13,18 @@ Port of ``repro/fl/pipeline.py`` for the flat, single-device round:
   it waits for the device (``torch.cuda.synchronize`` on CUDA), so each
   bucket holds its own work.
 
-Registered here: ``active``, ``local_sgd``, ``committee``, ``top_k``,
-``top_k_int8``, ``pytree``, ``fused_int8``, ``by_candidates``,
-``proportional``.  The reference's other stages are listed in
-``NOT_PORTED`` and raise ``NotImplementedError`` naming their ROADMAP item.
+Registered here: the BFLC stages ``active``, ``local_sgd``,
+``committee``, ``committee_int8``, ``top_k``, ``top_k_int8``, ``pytree``,
+``fused_int8``, ``by_candidates``, ``proportional``, and the baselines'
+no-op stages ``uniform``, ``accept_all``, ``all``, ``none`` (elector and
+rewarder).  The reference's sharded stages are listed in ``NOT_PORTED``
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Protocol
+from typing import Any, Callable, Dict, List, Optional, Protocol, Set
 
 import numpy as np
 import torch
@@ -46,10 +48,11 @@ from repro_torch.tree import tree_stack, tree_unstack
 # ----------------------------------------------------------------------
 @dataclass
 class RoundContext:
-    """State threaded through one round's stage pipeline."""
+    """State threaded through one round's stage pipeline.  ``manager`` and
+    ``chain`` stay None for the committee-free baselines."""
 
     # round inputs
-    cfg: Any                               # BFLCConfig
+    cfg: Any                               # BFLCConfig or FLConfig
     rng: np.random.Generator
     adapter: Any
     data: Any                              # FederatedDataset (host numpy)
@@ -65,7 +68,13 @@ class RoundContext:
     # batched helpers (built once by the runtime, shared across rounds)
     local_train_fn: Any = None
     score_matrix_fn: Any = None
+    int8_score_fn: Any = None              # fused int8 scorer
     collusion: Any = None                  # CollusionPolicy
+    malicious: Optional[Set[int]] = None   # baseline ground truth (no manager)
+    # uploader -> (q, scales, row, d): the int8 validator's per-row
+    # chain-codec quantization, cached so the packer reuses the rows
+    # instead of re-quantizing the packed stack
+    row_quant: Dict[int, Any] = field(default_factory=dict)
     # per-cohort state (overwritten each cohort)
     cohort: int = 0
     trainers: List[int] = field(default_factory=list)
@@ -91,6 +100,11 @@ class RoundContext:
     rewards: Dict[int, float] = field(default_factory=dict)
     # per-stage wall-clock seconds (cumulative over cohorts)
     timings: Dict[str, float] = field(default_factory=dict)
+
+    def is_malicious(self, node_id: int) -> bool:
+        if self.manager is not None:
+            return self.manager.nodes[node_id].is_malicious
+        return self.malicious is not None and int(node_id) in self.malicious
 
 
 # ----------------------------------------------------------------------
@@ -128,16 +142,11 @@ STAGE_TIMING_KEYS = (
 # the reference's other registered stages, with the ROADMAP.md item that
 # ports them
 NOT_PORTED = {
-    "committee_int8": "Queue 2 item 5 (fused candidates kernel)",
     "local_sgd_sharded": "Queue 1 item 11 (sharded rounds)",
     "committee_sharded": "Queue 1 item 11 (sharded rounds)",
     "committee_int8_sharded": "Queue 1 item 11 (sharded rounds)",
     "top_k_int8_sharded": "Queue 1 item 11 (sharded rounds)",
     "fused_int8_sharded": "Queue 1 item 11 (sharded rounds)",
-    "uniform": "Queue 1 item 7 (fl/baselines.py)",
-    "accept_all": "Queue 1 item 7 (fl/baselines.py)",
-    "all": "Queue 1 item 7 (fl/baselines.py)",
-    "none": "Queue 1 item 7 (fl/baselines.py)",
 }
 
 
@@ -198,6 +207,10 @@ class RoundPipeline:
             self._timed("validate", prepare, ctx)
         for cohort in range(self.max_cohorts):
             ctx.cohort = cohort
+            # rows quantized for an earlier cohort describe that cohort's
+            # updates; an uploader re-drawn later trains a new update, so a
+            # surviving cache entry would put a stale blob on the chain
+            ctx.row_quant.clear()
             self._timed("sample", self.sampler, ctx)
             if not ctx.trainers:
                 break
@@ -224,6 +237,20 @@ def default_stage_names(cfg) -> Dict[str, str]:
         "aggregator": "fused_int8" if quantized else "pytree",
         "elector": "by_candidates",
         "rewarder": "proportional",
+    }
+
+
+def baseline_stage_names() -> Dict[str, str]:
+    """Basic FL / CwMed: the same pipeline with every committee stage a
+    no-op, so one central aggregation over an unvalidated cohort."""
+    return {
+        "sampler": "uniform",
+        "local_trainer": "local_sgd",
+        "validator": "accept_all",
+        "packer": "all",
+        "aggregator": "pytree",
+        "elector": "none",
+        "rewarder": "none",
     }
 
 
@@ -273,6 +300,18 @@ def sample_active(ctx: RoundContext) -> None:
     ctx.trainers = trainers
 
 
+@register("sampler", "uniform")
+def sample_uniform(ctx: RoundContext) -> None:
+    """Baseline sampling: a uniform draw over all clients, no committee to
+    exclude; one cohort (a second call yields no trainers)."""
+    if ctx.updates:
+        ctx.trainers = []
+        return
+    n = ctx.data.num_clients
+    m = max(2, int(round(n * ctx.cfg.active_proportion)))
+    ctx.trainers = ctx.rng.choice(n, m, replace=False).tolist()
+
+
 def sample_cohort_batches(ctx: RoundContext):
     """The cohort's stacked local batches on the device: (P, steps, b, ...),
     (P, steps, b) — one host rng draw per trainer, in ``ctx.trainers``
@@ -296,7 +335,7 @@ def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> None:
     cfg, rng = ctx.cfg, ctx.rng
     attack = ATTACKS[cfg.attack]
     for idx, node_id in enumerate(ctx.trainers):
-        if ctx.manager.nodes[node_id].is_malicious:
+        if ctx.is_malicious(node_id):
             updates[idx] = attack(
                 rng, updates[idx], cfg.attack_sigma, ref=ctx.params
             ) if cfg.attack == "gaussian" else attack(rng, updates[idx])
@@ -338,11 +377,16 @@ class CommitteeValidator:
         )
         ctx.consensus.bind_score_table(ctx.score_table)
 
+    def _scores(self, ctx: RoundContext) -> torch.Tensor:
+        """The cohort's (P, Q) accuracy matrix (subclasses swap the
+        score program)."""
+        return ctx.score_matrix_fn(
+            ctx.params, tree_stack(ctx.cohort_updates), ctx.val_x, ctx.val_y
+        )
+
     def __call__(self, ctx: RoundContext) -> None:
         cfg, rng = ctx.cfg, ctx.rng
-        honest_scores = ctx.score_matrix_fn(
-            ctx.params, tree_stack(ctx.cohort_updates), ctx.val_x, ctx.val_y
-        ).cpu().numpy()                                 # (P, Q)
+        honest_scores = self._scores(ctx).cpu().numpy()    # (P, Q)
         for i, uploader in enumerate(ctx.trainers):
             row = {}
             for j, member in enumerate(ctx.round_committee):
@@ -368,6 +412,63 @@ class CommitteeValidator:
 register("validator", "committee")(CommitteeValidator())
 
 
+def cache_row_quant(ctx: RoundContext, q, s, d: int) -> None:
+    """Record the cohort's per-row chain-codec quantization: the int8
+    scorer's (rows, Dpad) q and (rows, nblk) scales ARE the blobs a
+    quantizing packer would store (same tiling), so the packer stacks the
+    cached rows instead of quantizing again."""
+    for i, uploader in enumerate(ctx.trainers):
+        ctx.row_quant[uploader] = (q, s, i, d)
+
+
+def cached_row_stack(ctx: RoundContext, ids: Optional[List[int]] = None):
+    """(q, s, d) stacked from the row-quant cache for the given uploaders
+    (default: the packed set), or None when any row is missing (e.g. the
+    f32 validator ran, so nothing was quantized yet)."""
+    ids = ctx.packed_ids if ids is None else ids
+    cache = ctx.row_quant
+    if not cache or any(u not in cache for u in ids):
+        return None
+    entries = [cache[u] for u in ids]
+    q = torch.stack([e[0][e[2]] for e in entries])
+    s = torch.stack([e[1][e[2]] for e in entries])
+    return q, s, entries[0][3]
+
+
+class Int8CommitteeValidator(CommitteeValidator):
+    """Committee scoring straight from the chain-codec int8 view of each
+    update (``stages={"validator": "committee_int8"}``, with
+    ``quantize_chain=True``): the fused candidates kernel rebuilds every
+    candidate from its quantized row in one read, so the committee scores
+    exactly the blob the packer stores, and the packer reuses the rows."""
+
+    def _scores(self, ctx: RoundContext) -> torch.Tensor:
+        if ctx.int8_score_fn is None:
+            raise RuntimeError(
+                "committee_int8 needs ctx.int8_score_fn: build the runtime "
+                "with quantize_chain=True (the scorer shares the chain "
+                "codec's unravel structure)"
+            )
+        stack, _ = flatten_updates(ctx.cohort_updates)
+        scores, q, s = ctx.int8_score_fn(ctx.params, stack, ctx.val_x,
+                                         ctx.val_y)
+        cache_row_quant(ctx, q, s, int(stack.shape[1]))
+        return scores
+
+
+register("validator", "committee_int8")(Int8CommitteeValidator())
+
+
+@register("validator", "accept_all")
+def validate_accept_all(ctx: RoundContext) -> None:
+    """Committee-free admission (Basic FL / CwMed): every update enters the
+    round set unscored; one cohort satisfies the trigger."""
+    for idx, uploader in enumerate(ctx.trainers):
+        ctx.updates[int(uploader)] = ctx.cohort_updates[idx]
+    ctx.trainers_total += [int(t) for t in ctx.trainers]
+    ctx.collected = True
+
+
 def _select_top_k(ctx: RoundContext) -> List[ValidationRecord]:
     """(3b) top-k qualified records; if fewer than k qualified, the best
     one fills the remaining slots so the chain layout holds."""
@@ -375,7 +476,8 @@ def _select_top_k(ctx: RoundContext) -> List[ValidationRecord]:
     if ctx.consensus is None:
         raise RuntimeError(
             "top-k packers select from committee validation records — pair "
-            "them with a consensus-producing validator (e.g. 'committee')"
+            "them with a consensus-producing validator (e.g. 'committee'), "
+            "or swap in a score-free packer (e.g. 'all')"
         )
     records = sorted(
         ctx.consensus.accepted_records(), key=lambda r: -r.median_score
@@ -410,18 +512,39 @@ def pack_top_k_int8(ctx: RoundContext) -> None:
     """Quantized chain packing (§IV.D): flatten the packed updates once,
     quantize the whole (K, D) stack in one kernel launch, store the int8
     rows as update blocks, and hand the quantized stack to the fused
-    aggregator."""
+    aggregator.  When the int8 validator already quantized the round's
+    rows, the cached rows are stacked instead (nothing is quantized
+    again)."""
     from repro_torch.kernels.ops import quantize_stack
 
     _set_packed(ctx, _select_top_k(ctx))
-    stack, unravel = flatten_updates(ctx.packed_updates)
-    q, s, d = quantize_stack(stack)
+    cached = cached_row_stack(ctx)
+    if cached is not None:
+        q, s, d = cached
+        unravel = ctx.chain.codec.unravel
+    else:
+        stack, unravel = flatten_updates(ctx.packed_updates)
+        q, s, d = quantize_stack(stack)
     for i, (u, sc) in enumerate(zip(ctx.packed_ids, ctx.packed_scores)):
         ctx.chain.append_update(
             {"q": q[i], "scales": s[i], "d": d}, u, sc, encoded=True
         )
         ctx.manager.nodes[u].score_history.append(sc)
     ctx.packed_quantized = (q, s, d, unravel)
+
+
+@register("packer", "all")
+def pack_all(ctx: RoundContext) -> None:
+    """Baseline packing: every collected update, size-weighted for fedavg
+    when the config asks (classic FedAvg weighting); no chain, no scores."""
+    cfg = ctx.cfg
+    ctx.packed_ids = list(ctx.updates)
+    ctx.packed_updates = [ctx.updates[u] for u in ctx.packed_ids]
+    ctx.packed_scores = []
+    weights = None
+    if getattr(cfg, "size_weighted", False) and cfg.aggregation == "fedavg":
+        weights = [len(ctx.data.client_labels[i]) for i in ctx.packed_ids]
+    ctx.weights = weights
 
 
 def _commit_aggregate(ctx: RoundContext, agg) -> None:
@@ -433,7 +556,8 @@ def _commit_aggregate(ctx: RoundContext, agg) -> None:
 
 @register("aggregator", "pytree")
 def aggregate_dense(ctx: RoundContext) -> None:
-    """(4) dense aggregation over f32 update trees (plain PyTorch)."""
+    """(4) dense aggregation over f32 update trees (plain PyTorch, or the
+    f32 kernels when ``cfg.use_kernels``)."""
     cfg = ctx.cfg
     agg = aggregate_pytrees(
         ctx.packed_updates, method=cfg.aggregation, weights=ctx.weights,
@@ -485,6 +609,11 @@ def elect_by_candidates(ctx: RoundContext) -> None:
     ctx.committee = fill_committee(ctx.manager, elected, ctx.q_committee)
 
 
+@register("elector", "none")
+def elect_none(ctx: RoundContext) -> None:
+    """No election (baselines)."""
+
+
 @register("rewarder", "proportional")
 def reward_proportional(ctx: RoundContext) -> None:
     """(5) profit sharing by contribution (§IV.A) + end-of-round
@@ -498,3 +627,8 @@ def reward_proportional(ctx: RoundContext) -> None:
                 ctx.manager.kick(r.uploader)
     if cfg.prune_keep_rounds > 0:
         ctx.chain.prune(cfg.prune_keep_rounds)
+
+
+@register("rewarder", "none")
+def reward_none(ctx: RoundContext) -> None:
+    """No incentive layer (baselines)."""

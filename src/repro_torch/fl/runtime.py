@@ -32,6 +32,7 @@ from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.fl.client import (
     make_eval_fn,
     make_local_train_fn,
+    make_score_from_int8_fn,
     make_score_matrix_fn,
 )
 from repro_torch.fl.pipeline import (
@@ -89,7 +90,8 @@ class RoundLog:
     test_accuracy: Optional[float] = None
 
 
-def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
+def check_schedule_and_mesh(mesh, schedule: str) -> None:
+    """Refuse the engines this port does not have yet, by ROADMAP item."""
     if schedule not in ("sequential", "async"):
         raise ValueError(
             f"schedule={schedule!r} must be 'sequential' or 'async'"
@@ -103,6 +105,10 @@ def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
             "mesh= (sharded rounds) is not ported yet: ROADMAP.md Queue 1 "
             "item 11"
         )
+
+
+def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
+    check_schedule_and_mesh(mesh, schedule)
     if cfg.tiers < 1:
         raise ValueError(f"tiers={cfg.tiers} must be >= 1")
     if cfg.tiers > 1:
@@ -115,12 +121,6 @@ def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
         raise ValueError(
             "quantize_chain=True requires use_kernels=True "
             "(aggregation runs the fused int8 kernel)"
-        )
-    if cfg.use_kernels and not cfg.quantize_chain:
-        raise NotImplementedError(
-            "use_kernels=True with quantize_chain=False needs the f32 "
-            "aggregation kernels, which are not ported yet: ROADMAP.md "
-            "Queue 2 items 6-8"
         )
     if cfg.aggregation == "trimmed_mean" and not 0 <= 2 * cfg.trim < cfg.k_updates:
         raise ValueError(
@@ -179,6 +179,10 @@ class BFLCRuntime:
         # batched helpers
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
         self._score_matrix = make_score_matrix_fn(adapter)
+        # the int8 scorer (committee_int8) shares the chain codec's unravel
+        # structure, so scored candidates decode exactly like stored blobs
+        self._int8_score = (make_score_from_int8_fn(adapter, self._codec.unravel)
+                            if cfg.quantize_chain else None)
         self._eval = make_eval_fn(adapter, self.device)
         self._collusion = CollusionPolicy()
 
@@ -233,6 +237,7 @@ class BFLCRuntime:
             p_trainers=self.p_trainers,
             local_train_fn=self._local_train,
             score_matrix_fn=self._score_matrix,
+            int8_score_fn=self._int8_score,
             collusion=self._collusion,
         )
         self.pipeline.run(ctx)

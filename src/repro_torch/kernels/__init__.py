@@ -1,20 +1,30 @@
-"""The port's kernels for the BFLC round's int8 chain path.
+"""The port's kernels for the BFLC round.
 
 One module per kernel family (``quantize``: codec quantize / dequantize;
-``fused_agg``: fused int8 aggregation), each holding the wrapper that
-launches the CUDA kernel of ``csrc/`` beside its plain PyTorch version,
-plus ``ops`` (the padded public layer) and ``_build`` (nvcc + ctypes).
+``fused_agg``: fused int8 aggregation; ``fused_score``: candidates from
+int8 rows; ``fedavg_agg`` and ``cwmed``: f32 aggregation), each holding
+the wrapper that launches the CUDA kernel of ``csrc/`` beside its plain
+PyTorch version, plus ``ops`` (the public layer) and ``_build``
+(nvcc + ctypes).
 """
+from repro_torch.kernels.cwmed import cwmed_kernel, trimmed_mean_kernel
+from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel
 from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel
+from repro_torch.kernels.fused_score import fused_candidates_kernel
 from repro_torch.kernels.ops import (
     Int8UpdateCodec,
+    aggregate,
     aggregate_quantized,
+    candidates_from_quantized,
+    cwmed,
     dequantize,
     dequantize_pytree,
+    fedavg_agg,
     padded_dim,
     quantize,
     quantize_pytree,
     quantize_stack,
+    trimmed_mean,
 )
 from repro_torch.kernels.quantize import (
     dequantize_kernel,
@@ -29,6 +39,10 @@ KERNEL_WRAPPERS = {
     "quantize_stack": quantize_stack_kernel,
     "dequantize": dequantize_kernel,
     "fused_agg": fused_agg_kernel,
+    "fused_candidates": fused_candidates_kernel,
+    "fedavg_agg": fedavg_agg_kernel,
+    "cwmed": cwmed_kernel,
+    "trimmed_mean": trimmed_mean_kernel,
 }
 
 
@@ -46,11 +60,18 @@ __all__ = [
     "METHODS",
     "KERNEL_WRAPPERS",
     "Int8UpdateCodec",
+    "aggregate",
     "aggregate_quantized",
+    "candidates_from_quantized",
+    "cwmed",
+    "cwmed_kernel",
     "dequantize",
     "dequantize_kernel",
     "dequantize_pytree",
+    "fedavg_agg",
+    "fedavg_agg_kernel",
     "fused_agg_kernel",
+    "fused_candidates_kernel",
     "launch_counts",
     "padded_dim",
     "quantize",
@@ -59,4 +80,6 @@ __all__ = [
     "quantize_stack",
     "quantize_stack_kernel",
     "reset_launch_counts",
+    "trimmed_mean",
+    "trimmed_mean_kernel",
 ]

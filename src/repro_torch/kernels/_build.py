@@ -11,7 +11,8 @@ rebuilds and an unchanged one is loaded as built.  It happens at first use
 compile in parallel, one nvcc each.  A failed build raises.
 
 No ``--use_fast_math``: the codec's division and rounding must be IEEE,
-as the reference's are.
+as the reference's are.  The reductions spell out each rounding
+(``__fmaf_rn``, ``__fadd_rn``, ``__fmul_rn``), which nvcc never contracts.
 """
 from __future__ import annotations
 
@@ -40,6 +41,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "fused_agg": {
         "repro_fused_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "fused_score": {
+        "repro_fused_candidates": [_P, _P, _P, _P, _I, _I, _P],
+    },
+    "f32_agg": {
+        "repro_fedavg_agg": [_P, _P, _P, _I, _L, _P],
+        "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -129,6 +137,18 @@ def stream_handle(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_f32_stack(stack, what: str) -> None:
+    """Raise unless ``stack`` is a non-empty 2-D float32 (K, D) stack, the
+    input every f32 aggregation wrapper takes."""
+    import torch
+
+    if stack.dtype != torch.float32 or stack.dim() != 2:
+        raise TypeError(f"{what}: want a 2-D float32 stack, got "
+                        f"{stack.dtype} {tuple(stack.shape)}")
+    if stack.shape[0] == 0 or stack.shape[1] == 0:
+        raise ValueError(f"{what}: empty stack {tuple(stack.shape)}")
 
 
 def require_cuda(*ts, vector_loaded=()) -> None:

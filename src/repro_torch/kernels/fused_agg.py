@@ -1,8 +1,9 @@
 """Fused int8 aggregation: the BFLC round's aggregation in one pass.
 
-Port of ``repro/kernels/fused_agg.py`` (with the sort helpers it uses from
-``repro/kernels/cwmed.py``).  The K chain-format update rows (int8 plus a
-scale per 2048-lane tile) are dequantized in registers and reduced per lane
+Port of ``repro/kernels/fused_agg.py``; its plain version shares the f32
+reductions of ``fedavg_agg.py`` and ``cwmed.py``.  The K chain-format
+update rows (int8 plus a scale per 2048-lane tile) are dequantized in
+registers and reduced per lane
 — weighted sum (fedavg), median (cwmed) or trimmed mean — and with
 ``quantize_out`` each output tile is requantized in the same pass, so the
 f32 (K, D) stack never exists in device memory.
@@ -18,52 +19,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cwmed import cwmed_ref, trimmed_mean_ref
+from repro_torch.kernels.fedavg_agg import fedavg_agg_ref
 from repro_torch.kernels.quantize import dequantize_stack_ref, quantize_ref
 from repro_torch.kernels.tiling import BLOCK_D
-from repro_torch.numerics import recip_f32
 
 METHODS = ("fedavg", "cwmed", "trimmed_mean")
 # largest K the sort methods take (per-lane array in csrc/fused_agg.cu)
 MAX_SORT_K = 64
 
 
-def median_of_sorted(rows: torch.Tensor) -> torch.Tensor:
-    K = rows.shape[0]
-    if K % 2 == 1:
-        return rows[K // 2]
-    return 0.5 * (rows[K // 2 - 1] + rows[K // 2])
-
-
-def trimmed_mean_of_sorted(rows: torch.Tensor, trim: int) -> torch.Tensor:
-    """Sequential sum of the kept rows times the f32 reciprocal of their
-    count (the reference's ``trimmed_mean_of_sorted`` as compiled)."""
-    keep = rows[trim : rows.shape[0] - trim]
-    acc = keep[0]
-    for r in keep[1:]:
-        acc = acc + r
-    return acc * recip_f32(keep.shape[0])
-
-
 def reduce_rows(stack: torch.Tensor, weights: torch.Tensor, method: str,
                 trim: int) -> torch.Tensor:
-    """(K, D) f32 -> (D,).
-
-    fedavg accumulates one row at a time with a fused multiply-add,
-    ``acc = fma(stack[k], w[k], acc)``, as the kernel and the reference's
-    compiled sum do.  PyTorch has no fma op, so it is taken in float64: the
-    product of two floats is exact there, and rounding the double sum to
-    float32 differs from one fused rounding only when the sum lands on a
-    float32 rounding midpoint (about one case in 2**29).  The sort methods
-    sort each lane's K values."""
+    """(K, D) f32 -> (D,) by the f32 kernels' plain versions: fedavg's
+    fused multiply-add chain, or a per-lane sort for the other two."""
     if method == "fedavg":
-        acc = torch.zeros_like(stack[0], dtype=torch.float64)
-        for k in range(stack.shape[0]):
-            acc = (stack[k].double() * weights[k].double() + acc).float().double()
-        return acc.float()
-    rows = torch.sort(stack, dim=0).values
+        return fedavg_agg_ref(stack, weights)
     if method == "cwmed":
-        return median_of_sorted(rows)
-    return trimmed_mean_of_sorted(rows, trim)
+        return cwmed_ref(stack)
+    return trimmed_mean_ref(stack, trim)
 
 
 def fused_agg_ref(q, scales, weights, method: str = "fedavg", trim: int = 1,

@@ -1,5 +1,6 @@
 """The port's entry points: CUDA by default, the CPU only on request, and
-every option the port does not have yet refused by name."""
+every option the port does not have yet refused by name; the kernel
+wrappers: a tensor on neither the CPU nor CUDA gets no plain version."""
 import pytest
 import torch
 
@@ -8,6 +9,9 @@ from repro_torch.data import make_femnist_like
 from repro_torch.fl.adapter import femnist_adapter
 from repro_torch.fl.pipeline import STAGE_TIMING_KEYS
 from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels.cwmed import cwmed_kernel, trimmed_mean_kernel
+from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel
+from repro_torch.kernels.fused_score import fused_candidates_kernel
 
 torch.set_num_threads(2)
 
@@ -32,10 +36,6 @@ def test_default_device_is_cuda_and_raises_without_it(tiny_ds):
     (dict(mesh=object()), {}, "Queue 1 item 11"),
     (dict(tiers=2), {}, "Queue 1 item 9"),
     (dict(schedule="async"), {}, "Queue 1 item 10"),
-    (dict(baseline=True), {}, "Queue 1 item 7"),
-    (dict(stages={"validator": "committee_int8"}),
-     dict(quantize_chain=True, use_kernels=True), "Queue 2 item 5"),
-    (dict(), dict(use_kernels=True), "Queue 2 items 6-8"),
 ])
 def test_unported_options_raise_not_implemented(tiny_ds, kwargs, cfg, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -63,6 +63,33 @@ def test_cpu_round_from_the_ports_own_init(tiny_ds):
                for v in p.values())
     # CPU tensors take the plain versions: no kernel was launched
     assert launch_counts() == before
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("launch", [
+    lambda: fused_candidates_kernel(_meta((2048,)), _meta((2, 2048), torch.int8),
+                                    _meta((2, 1))),
+    lambda: fedavg_agg_kernel(_meta((3, 100)), _meta((3,))),
+    lambda: cwmed_kernel(_meta((3, 100))),
+    lambda: trimmed_mean_kernel(_meta((3, 100)), trim=1),
+], ids=("fused_candidates", "fedavg_agg", "cwmed", "trimmed_mean"))
+def test_new_wrappers_never_fall_back(launch):
+    before = launch_counts()
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        launch()
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("method", ("fedavg", "cwmed", "trimmed_mean"))
+def test_cpu_f32_kernel_round_from_the_ports_own_init(tiny_ds, method):
+    rt = build_runtime(femnist_adapter(8), tiny_ds,
+                       {**SMALL, "use_kernels": True, "aggregation": method},
+                       device="cpu")
+    rt.run_round()
+    assert rt.chain.verify() and rt.chain.height == 1 + rt.cfg.k_updates + 1
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -5,17 +5,21 @@ never at import).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-The plain versions run on CPU copies of the same inputs.  quantize and
-dequantize are bit-exact; the fused aggregation is exact for cwmed and
-trimmed_mean and within rtol 1e-6 for fedavg (the plain version emulates
-the kernel's fused multiply-add in float64).
+The plain versions run on CPU copies of the same inputs.  quantize,
+dequantize, the fused candidates and the f32 fedavg (given the same
+weights) and trimmed mean are bit-exact; the f32 median is equal by value
+(+0.0 and -0.0 tie in a sort); the fused aggregation is exact for cwmed
+and trimmed_mean and within rtol 1e-6 for fedavg (normalized weights).
 """
 import pytest
 import torch
 
+from repro_torch.core.aggregation import normalize_weights
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_agg import METHODS
 from repro_torch.kernels.quantize import quantize_stack_kernel
+
+F32_KS = (1, 2, 3, 8, 17, 90)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +72,45 @@ def test_fused_agg_matches_plain(cuda, K, method, quantize_out):
                                    atol=1e-6 * float(want.abs().max()))
     else:
         assert torch.equal(got.cpu(), want)
+
+
+def _signed_zero_stack(K, D, seed):
+    """(K, D) normals with, in every lane of the first tile, ties of +0.0
+    and -0.0 (half the rows each), as a sign-flip attack leaves them."""
+    x = _stack(K, D, seed)
+    x[:, :2048] = 0.0
+    x[K // 2:, :2048] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("K", (1, 3, 17, 54))
+@pytest.mark.parametrize("D", (2048, 5000, 6145))
+def test_fused_candidates_bit_exact(cuda, K, D):
+    q, s, d = ops.quantize_stack(_stack(K, D, K + D))
+    base = torch.randn((D,), generator=torch.Generator().manual_seed(D)) * 0.05
+    got = ops.candidates_from_quantized(base.to(cuda), q.to(cuda), s.to(cuda), d)
+    want = ops.candidates_from_quantized(base, q, s, d)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("K", F32_KS)
+@pytest.mark.parametrize("D", (2048, 5000, 6145))
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("zeros", (False, True), ids=("normal", "signed_zero"))
+def test_f32_aggregate_matches_plain(cuda, K, D, method, zeros):
+    x = (_signed_zero_stack if zeros else _stack)(K, D, 3 * K + D)
+    w = torch.rand((K,), generator=torch.Generator().manual_seed(K))
+    trim = (K - 1) // 2
+    got = ops.aggregate(x.to(cuda), method, weights=w.to(cuda), trim=trim).cpu()
+    w_cpu = normalize_weights(K, w.to(cuda), cuda).cpu()   # same weights
+    if method == "fedavg":
+        want = ops.fedavg_agg(x, w_cpu)
+    else:
+        want = ops.aggregate(x, method, trim=trim)
+    if method == "cwmed" or zeros:
+        assert torch.equal(got, want)                 # by value
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_kernel_counts_its_launches(cuda):
