@@ -8,15 +8,24 @@ Phases, one JSON line each:
   card     the GPU's name and power limit (nvidia-smi) and the TF32 switches
            the port sets (both must be off)
   build    nvcc of every CUDA source under src/repro_torch/kernels/csrc,
-           in parallel, with the build seconds
+           in parallel, with the build seconds and ptxas's registers, stack
+           and spills for every kernel; the sort networks must use no stack
+           and spill nothing
   kernel   each kernel against its plain PyTorch version (run on CPU copies
            of the same inputs) at the shapes its path gives it and at edge
            shapes (ragged D, all-zero tiles, exact half steps, K from 1 to
-           90, ties of +0.0 and -0.0, quantize_out on and off for every
-           method), with device times (CUDA-graph replay between CUDA
-           events) of the kernel, the plain version and, where one PyTorch
-           call computes the same function, that call; ``eager_ms`` is the
-           kernel's time per call from Python, launch path included
+           90 on every side of the sort-network widths 8, 16 and 32, ties
+           of +0.0 and -0.0, quantize_out on and off for every method),
+           with device times (CUDA-graph replay between CUDA events) of the
+           kernel, L2-warm (``ms``) and L2-cold (``cold_ms``), of the plain
+           version and, where one PyTorch call computes the same function,
+           of that call; ``eager_ms`` is the kernel's time per call from
+           Python, launch path included.  ``variant`` names the design the
+           wrapper launched, and ``alternatives`` times the other design
+           in the same run through its uncounted launcher (cwmed and
+           trimmed_mean in shared memory)
+  kernel_floor  dequantize on one tile
+  kernel_k90  the shared-memory sort at (90, D), which no path runs
   paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
            900 writers, P = 54, Q = 36, k = 8) on one dataset, each path
            with the launch counts set to 0 just before it and read just
@@ -44,8 +53,11 @@ exits non-zero and prints no result; without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +68,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 MAIN_K = 8
+# inputs read between two reads of one copy in an L2-cold timing (> 50 MB L2)
+COLD_BYTES = 100e6
 MAIN_P = 54          # trainers scored per cohort at full width
 # kernel -> (source under src/repro_torch/kernels/csrc, the reference's
 # pallas_call it replaces)
@@ -120,6 +134,20 @@ def time_ms(fn, iters: int = 50, reps: int = 20) -> float:
             fn()
     graph.replay()
     return _events_ms(graph.replay, reps) / iters
+
+
+def cold_ms(fn, args, reps: int = 5) -> float:
+    """Device time of one call with its inputs cold in L2: the timed calls
+    cycle through enough copies of ``args`` that over COLD_BYTES of other
+    inputs are read between two reads of one copy."""
+    import torch
+
+    per_call = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+    n = math.ceil(COLD_BYTES / per_call) + 1
+    copies = itertools.cycle([tuple(a.clone() if isinstance(a, torch.Tensor)
+                                    else a for a in args) for _ in range(n)])
+    return time_ms(lambda: fn(*next(copies)), iters=n, reps=reps)
 
 
 def eager_ms(fn, reps: int = 200) -> float:
@@ -200,14 +228,44 @@ def phase_card():
     check(not any(tf32.values()), "TF32 must be off on the port's path")
 
 
+def ptxas_report(log: str) -> dict:
+    """kernel -> registers, stack and spill bytes, from ``nvcc -Xptxas -v``
+    output; names demangled as far as ``repro::name<int>``."""
+    out = {}
+    for m in re.finditer(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
+            r"[^\n]*Used (\d+) registers", log):
+        name = m.group(1)
+        n = re.match(r"_ZN5repro(\d+)", name)
+        if n:
+            rest = name[n.end():]
+            base = rest[:int(n.group(1))]
+            t = re.match(r"ILi(\d+)E", rest[len(base):])
+            name = f"{base}<{t.group(1)}>" if t else base
+        out[name] = {"registers": int(m.group(5)), "stack": int(m.group(2)),
+                     "spill_stores": int(m.group(3)),
+                     "spill_loads": int(m.group(4))}
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cwmed import NETWORK_WIDTHS
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    emit(phase="build", seconds=time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    ptxas = {n: ptxas_report(_build.build_log(n)) for n in paths}
+    emit(phase="build", seconds=seconds,
          libraries={k: os.path.relpath(v, ROOT) for k, v in paths.items()},
-         flags=list(_build.NVCC_FLAGS))
+         flags=list(_build.NVCC_FLAGS), ptxas=ptxas)
+    for w in NETWORK_WIDTHS:
+        net = ptxas["f32_agg"].get(f"sort_net_kernel<{w}>")
+        check(net is not None, f"ptxas reported no sort_net_kernel<{w}>")
+        check(net["stack"] == 0 and net["spill_stores"] == 0
+              and net["spill_loads"] == 0,
+              f"sort_net_kernel<{w}> keeps its column off registers: {net}")
 
 
 def phase_kernels():
@@ -217,7 +275,9 @@ def phase_kernels():
     from repro_torch.core.aggregation import normalize_weights
     from repro_torch.kernels import ops
     from repro_torch.kernels.cwmed import (
-        cwmed_kernel, cwmed_ref, trimmed_mean_kernel, trimmed_mean_ref,
+        _CWMED, _TRIMMED_MEAN, SHARED_MEMORY, _launch_sort, cwmed_kernel,
+        cwmed_ref, median_of_sorted, sort_width, trimmed_mean_kernel,
+        trimmed_mean_of_sorted, trimmed_mean_ref,
     )
     from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel, fedavg_agg_ref
     from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
@@ -226,8 +286,8 @@ def phase_kernels():
     )
     from repro_torch.kernels.ops import padded_dim
     from repro_torch.kernels.quantize import (
-        dequantize_kernel, dequantize_ref, quantize_kernel, quantize_ref,
-        quantize_stack_kernel, quantize_stack_ref,
+        dequantize_kernel, dequantize_ref, quantize_kernel, quantize_ref, quantize_stack_kernel,
+        quantize_stack_ref,
     )
     from repro_torch.kernels.tiling import BLOCK_D
 
@@ -249,29 +309,45 @@ def phase_kernels():
     rows = []
 
     def row(name, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
-            library=None, edge=None):
+            library=None, edge=None, variant=None, alternatives=None):
+        """``alternatives``: {variant: fn} other designs of the kernel,
+        checked and timed in the same run beside it."""
+        want = plain(*cpu_args)
         got = fn(*gpu_args)
         torch.cuda.synchronize()
-        err = max_err(got, plain(*cpu_args))
+        err = max_err(got, want)
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         b_ms, b_by = bound_ms(nbytes, flops)
         source, replaces = KERNELS[name]
         entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "tolerance": tol,
+            "replaces": replaces, "variant": variant, "launches": None,
+            "max_abs_err": err, "tolerance": tol,
             "ms": time_ms(lambda: fn(*gpu_args)),
+            "cold_ms": cold_ms(fn, gpu_args),
             "eager_ms": eager_ms(lambda: fn(*gpu_args)),
             "plain_ms": time_ms(lambda: plain(*gpu_args)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(library) if library else None,
             "shape": [list(a.shape) for a in gpu_args if hasattr(a, "shape")],
         }
+        entry["alternatives"] = []
+        for alt, alt_fn in (alternatives or {}).items():
+            alt_err = max_err(alt_fn(*gpu_args), want)
+            check(alt_err <= tol, f"{name} ({alt}): max_abs_err {alt_err}")
+            entry["alternatives"].append({
+                "variant": alt, "max_abs_err": alt_err,
+                "ms": time_ms(lambda: alt_fn(*gpu_args)),
+                "cold_ms": cold_ms(alt_fn, gpu_args)})
         if edge is not None:
             entry["edge_cases"], entry["edge_max_abs_err"] = edge()
         emit(phase="kernel", **entry)
         rows.append(entry)
+
+    def sort_variant(K_):
+        w_ = sort_width(K_)
+        return "shared memory" if w_ == SHARED_MEMORY else f"register network W={w_}"
 
     def edge_quantize():
         n, worst = 0, 0.0
@@ -352,9 +428,9 @@ def phase_kernels():
 
     def edge_f32():
         """fedavg (same weights) and trimmed mean bit for bit, the median
-        by value; with +-0.0 ties every method by value."""
+        by value; with +-0.0 ties fedavg and the median by value."""
         n = 0
-        for K_ in (1, 2, 3, 8, 17, 90):
+        for K_ in (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 90):
             for D_ in (2048, 5000, 6145):
                 for zeros in (False, True):
                     xs = (signed_zero_stack if zeros else edge_stack)(K_, D_, K_ * 3 + D_)
@@ -368,7 +444,7 @@ def phase_kernels():
                                          ops.trimmed_mean(xs.cpu(), trim)),
                     }
                     for method, (got, want) in pairs.items():
-                        if zeros or method == "cwmed":
+                        if method == "cwmed" or (zeros and method == "fedavg"):
                             ok = torch.equal(got.cpu(), want)
                         else:
                             ok = same_bits(got, want)
@@ -389,7 +465,11 @@ def phase_kernels():
         dequantize_ref, (q1.cpu(), s1.cpu()), (q1, s1), 0.0,
         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
         library=lambda: torch.mul(q1.view(-1, BLOCK_D), s1[:, None]),
-        edge=edge_dequantize)
+        edge=edge_dequantize, variant="4 lanes a thread")
+    # one tile: launch, ramp-up and one round trip to memory, which no
+    # layout of the bytes removes
+    emit(phase="kernel_floor", name="dequantize", shape=[[BLOCK_D], [1]],
+         floor_ms=time_ms(lambda: dequantize_kernel(q1[:BLOCK_D], s1[:1])))
     fedavg_tol = 1e-6 * float(fused_agg_ref(q8.cpu(), s8.cpu(), w.cpu()).abs().max())
     row("fused_agg",
         lambda q, s, w_: fused_agg_kernel(q, s, w_),
@@ -424,10 +504,33 @@ def phase_kernels():
         library=lambda: torch.matmul(w, xs), edge=edge_f32)
     row("cwmed", cwmed_kernel, cwmed_ref, (xs.cpu(),), (xs,), 0.0,
         K * D * f32 + D * f32, sort_ops + D,
-        library=lambda: torch.quantile(xs, half, dim=0))
+        library=lambda: torch.quantile(xs, half, dim=0),
+        variant=sort_variant(K),
+        alternatives={"shared memory": lambda a: _launch_sort(
+            a, _CWMED, 0, SHARED_MEMORY)})
     row("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
         lambda a: trimmed_mean_ref(a, 1), (xs.cpu(),), (xs,), 0.0,
-        K * D * f32 + D * f32, sort_ops + (K - 1) * D)
+        K * D * f32 + D * f32, sort_ops + (K - 1) * D,
+        variant=sort_variant(K),
+        alternatives={"shared memory": lambda a: _launch_sort(
+            a, _TRIMMED_MEAN, 1, SHARED_MEMORY)})
+
+    # the shared-memory sort at a full Basic-FL cohort's K, which no path
+    # runs (the baselines aggregate with the plain reductions)
+    K90 = 90
+    x90 = torch.randn((K90, D), generator=g, device="cuda") * 1e-3
+    srt = torch.sort(x90.cpu(), dim=0).values
+    for method, fn, want, extra_ops in (
+            ("cwmed", cwmed_kernel, median_of_sorted(srt), D),
+            ("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
+             trimmed_mean_of_sorted(srt, 1), (K90 - 1) * D)):
+        err = max_err(fn(x90), want)
+        check(err == 0.0, f"{method} K={K90}: max_abs_err {err}")
+        b_ms, b_by = bound_ms(K90 * D * f32 + D * f32,
+                              K90 * (K90 - 1) // 2 * D + extra_ops)
+        emit(phase="kernel_k90", name=method, variant=sort_variant(K90),
+             shape=[K90, D], max_abs_err=err, ms=time_ms(lambda: fn(x90)),
+             cold_ms=cold_ms(fn, (x90,)), bound_ms=b_ms, bound_by=b_by)
     return rows
 
 
@@ -761,8 +864,9 @@ def main(argv) -> int:
     if "--profile" in argv:
         for name, (_, rt) in paths.items():
             phase_profile(name, rt)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "variant", "launches",
+            "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     emit(kernels=[{k: r[k] for k in keys} for r in rows])
     print(nvidia_smi(), flush=True)
     emit(ok=True, device={"platform": "gpu",

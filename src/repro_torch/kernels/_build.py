@@ -8,7 +8,9 @@ every count a ``c_int`` (or ``c_longlong``), and every entry returns
 hash covers every file in ``csrc/`` and the nvcc flags, so an edited source
 rebuilds and an unchanged one is loaded as built.  It happens at first use
 (or through ``build_all``), from the repository's sources only; all sources
-compile in parallel, one nvcc each.  A failed build raises.
+compile in parallel, one nvcc each.  A failed build raises.  nvcc's output,
+with ptxas's registers, stack and spills for every kernel (``-Xptxas -v``),
+is kept beside each library as ``lib<name>.log`` (``build_log``).
 
 No ``--use_fast_math``: the codec's division and rounding must be IEEE,
 as the reference's are.  The reductions spell out each rounding
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "f32_agg": {
         "repro_fedavg_agg": [_P, _P, _P, _I, _L, _P],
-        "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _P],
+        "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _I, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -103,10 +105,16 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             os.unlink(tmp)
             failed.append(f"nvcc {name}.cu (exit {proc.returncode}):\n{log}")
         else:
+            (out_dir / f"lib{name}.log").write_text(log)
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``, building it first if needed."""
+    return build_all([name])[name].with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

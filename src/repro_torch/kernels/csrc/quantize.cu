@@ -15,6 +15,21 @@
 // of shared memory, and stores the eight int8 lanes as one 8-byte word, so
 // neighbouring threads touch neighbouring addresses.  Nothing is staged
 // through device memory between the max and the quantize.
+//
+// Dequantize runs on every update block read off the chain, one blob a
+// call.  A launch that moves 2.2 MB is short enough that launch and
+// ramp-up take most of its time (the same kernel on one tile takes about
+// two thirds of the main blob's time; PERF.md), so the kernel issues few,
+// wide and fully coalesced memory operations.
+// Each thread takes 4 consecutive lanes (one 4-byte int8 load and one
+// 16-byte f32 store), so every load and store of a warp covers 128 or 512
+// contiguous bytes; a block covers 1024 lanes inside one tile and reads
+// the tile's scale once, at the address all its threads share.  This
+// replaced one lane a thread (a 1-byte load and a 4-byte store), 2.0 us
+// for the main blob.  Wider threads measured slower on the H100 (PERF.md):
+// 8 or 16 consecutive lanes, because a warp's 16-byte stores then land 32
+// or 64 bytes apart and each line is written by two or four instructions,
+// and 8 lanes as two such 4-lane chunks, one block a tile.
 #include "common.cuh"
 
 namespace repro {
@@ -40,13 +55,23 @@ quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   if (threadIdx.x == 0) s[static_cast<size_t>(row) * nblk + tile] = scale;
 }
 
-// out[i] = q[i] * s[i / BLOCK_D] over a contiguous (rows * nblk * BLOCK_D)
-// range: one row, or a whole (K, Dpad) stack with (K, nblk) scales.
+// out[i] = q[i] * s[i / BLOCK_D] over a contiguous run of whole tiles: one
+// row, or a whole (K, Dpad) stack with (K, nblk) scales.
+constexpr int DEQ_SPAN = THREADS * 4;  // lanes of one block
+static_assert(BLOCK_D % DEQ_SPAN == 0, "a block inside one tile");
+
 __global__ void __launch_bounds__(THREADS)
 dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                  float* __restrict__ out, size_t n) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i < n) out[i] = static_cast<float>(q[i]) * s[i / BLOCK_D];
+                  float* __restrict__ out) {
+  const size_t first = static_cast<size_t>(blockIdx.x) * DEQ_SPAN +
+                       4 * threadIdx.x;
+  const float scale = s[static_cast<size_t>(blockIdx.x) * DEQ_SPAN / BLOCK_D];
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(q + first);
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = static_cast<float>(static_cast<int8_t>((w >> (8 * b)) & 0xffu)) * scale;
+  *reinterpret_cast<float4*>(out + first) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
 }  // namespace repro
@@ -62,14 +87,16 @@ extern "C" int repro_quantize_rows(const void* x, void* q, void* s, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: (n,) int8 with n a multiple of 2048, s: (n / 2048,) f32 -> out: (n,) f32.
+// q: (n,) int8 with n a multiple of 2048, s: (n / 2048,) f32 -> out: (n,)
+// f32.  q must be 4-byte and out 16-byte aligned.
 extern "C" int repro_dequantize(const void* q, const void* s, void* out,
                                 long long n, void* stream) {
   if (n <= 0 || n % repro::BLOCK_D != 0) return cudaErrorInvalidValue;
-  const long long blocks = n / repro::THREADS;
+  const long long blocks = n / repro::DEQ_SPAN;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   repro::dequantize_kernel<<<static_cast<unsigned>(blocks), repro::THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<float*>(out), static_cast<size_t>(n));
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -119,7 +119,7 @@ def dequantize_kernel(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         )
     if q.device.type == "cpu":
         return dequantize_ref(q, scales)
-    _build.require_cuda(q, scales)
+    _build.require_cuda(q, scales, vector_loaded=(q,))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _build.load("quantize")
     code = lib.repro_dequantize(

@@ -10,16 +10,29 @@ dequantize, the fused candidates and the f32 fedavg (given the same
 weights) and trimmed mean are bit-exact; the f32 median is equal by value
 (+0.0 and -0.0 tie in a sort); the fused aggregation is exact for cwmed
 and trimmed_mean and within rtol 1e-6 for fedavg (normalized weights).
+The trimmed mean of a lane whose zeros carry random signs is held by
+value: where the trim cuts a run of tied zeros, which zeros are kept
+depends on the sort's tie order (K = 3 over +0, -0, +0 keeps either), and
+torch.sort's tie order is not defined.
 """
 import pytest
 import torch
 
 from repro_torch.core.aggregation import normalize_weights
 from repro_torch.kernels import ops
+from repro_torch.kernels.cwmed import (
+    SHARED_MEMORY, cwmed_kernel, median_of_sorted, sort_width,
+    trimmed_mean_kernel, trimmed_mean_of_sorted,
+)
 from repro_torch.kernels.fused_agg import METHODS
-from repro_torch.kernels.quantize import quantize_stack_kernel
+from repro_torch.kernels.quantize import (
+    dequantize_kernel, dequantize_ref, quantize_stack_kernel,
+)
 
 F32_KS = (1, 2, 3, 8, 17, 90)
+# every side of each sort-network width (8, 16, 32) and the shared-memory sort
+SORT_KS = (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 90)
+SORT_DS = (1, 255, 257, 6145, 428350)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,10 +126,99 @@ def test_f32_aggregate_matches_plain(cuda, K, D, method, zeros):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _bits(t):
+    return t.cpu().view(torch.int32)
+
+
+def _sort_stacks(K, D, seed):
+    """(K, D) update-sized normals whose lanes cycle through four kinds:
+    i % 4 == 1 all zeros, the first K // 2 rows +0.0 and the rest -0.0 (a
+    sign-flip attack's ties); i % 4 == 2 zeros of random sign among
+    normals; i % 4 == 3 half the rows equal to row 0 (ties of one value).
+    Returns it and a copy with +inf in some rows of lanes i % 8 == 0 and
+    -inf in some rows of lanes i % 8 == 4, for the median only (a trimmed
+    mean over both infinities is NaN)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((K, D), generator=g) * 1e-3
+    lane = torch.arange(D)
+    split = lane % 4 == 1
+    x[:, split] = 0.0
+    x[K // 2:, split] = -0.0
+    rand = lane % 4 == 2
+    zero = (torch.rand((K, D), generator=g) < 0.5) & rand
+    sign = torch.where(torch.rand((K, D), generator=g) < 0.5, -1.0, 1.0)
+    x = torch.where(zero, 0.0 * sign, x)
+    dup = lane % 4 == 3
+    x[1::2, dup] = x[0, dup]
+    inf = x.clone()
+    rows = torch.arange(K)[:, None]
+    inf[(rows % 3 == 0) & (lane % 8 == 0)] = float("inf")
+    inf[(rows % 3 == 1) & (lane % 8 == 4)] = float("-inf")
+    return x, inf, rand
+
+
+@pytest.mark.parametrize("K", SORT_KS)
+@pytest.mark.parametrize("D", SORT_DS)
+def test_sort_kernels_match_plain(cuda, K, D):
+    x, inf, rand = _sort_stacks(K, D, 7 * K + D)
+    srt = torch.sort(x, dim=0).values
+    assert torch.equal(cwmed_kernel(x.to(cuda)).cpu(), median_of_sorted(srt))
+    assert torch.equal(cwmed_kernel(inf.to(cuda)).cpu(),
+                       median_of_sorted(torch.sort(inf, dim=0).values))
+    for trim in sorted({t for t in (1, (K - 1) // 2) if 2 * t < K}):
+        got = trimmed_mean_kernel(x.to(cuda), trim=trim).cpu()
+        want = trimmed_mean_of_sorted(srt, trim)
+        assert torch.equal(got, want), trim
+        assert torch.equal(_bits(got[~rand]), _bits(want[~rand])), trim
+
+
+@pytest.mark.parametrize("K", range(1, 21))
+def test_sort_network_on_every_zero_one_column(cuda, K):
+    """Column c holds the bits of c: all 2**K 0/1 patterns.  By the 0-1
+    principle a comparator network that puts the right value at a sorted
+    position for every 0/1 input does so for every input, so the median's
+    agreement here is a proof for its positions at this K."""
+    assert sort_width(K) != SHARED_MEMORY
+    c = torch.arange(2 ** K)
+    x = ((c[None, :] >> torch.arange(K)[:, None]) & 1).to(torch.float32)
+    srt = torch.sort(x, dim=0).values
+    assert torch.equal(cwmed_kernel(x.to(cuda)).cpu(), median_of_sorted(srt))
+    for trim in range(1, (K - 1) // 2 + 1):
+        got = trimmed_mean_kernel(x.to(cuda), trim=trim).cpu()
+        assert torch.equal(_bits(got), _bits(trimmed_mean_of_sorted(srt, trim))), trim
+
+
+@pytest.mark.parametrize("n", (2048, 4096, 6144, 430080))
+def test_dequantize_bit_exact(cuda, n):
+    """All-zero tiles (scale 1.0), tiles that reach +-127, random tiles."""
+    g = torch.Generator().manual_seed(n)
+    nblk = n // 2048
+    q = torch.randint(-127, 128, (n,), generator=g, dtype=torch.int8)
+    s = torch.rand((nblk,), generator=g) * 1e-4
+    q[:2048] = 0
+    s[0] = 1.0
+    q[2048::2048] = 127
+    q[2049::2048] = -127
+    want = dequantize_ref(q, s)
+    assert torch.equal(_bits(dequantize_kernel(q.to(cuda), s.to(cuda))), _bits(want))
+
+
 def test_kernel_counts_its_launches(cuda):
     before = quantize_stack_kernel.launches
     quantize_stack_kernel(torch.zeros((2, 2048), device=cuda))
     assert quantize_stack_kernel.launches == before + 1
+    before = dequantize_kernel.launches
+    dequantize_kernel(torch.zeros(2048, dtype=torch.int8, device=cuda),
+                      torch.ones(1, device=cuda))
+    assert dequantize_kernel.launches == before + 1
+    for K in (8, 33):                    # a register network, shared memory
+        x = torch.zeros((K, 300), device=cuda)
+        before = cwmed_kernel.launches
+        cwmed_kernel(x)
+        assert cwmed_kernel.launches == before + 1
+        before = trimmed_mean_kernel.launches
+        trimmed_mean_kernel(x, trim=1)
+        assert trimmed_mean_kernel.launches == before + 1
 
 
 def test_round_on_the_card_matches_the_cpu_port(cuda):
