@@ -9,23 +9,29 @@ Phases, one JSON line each:
            the port sets (both must be off)
   build    nvcc of every CUDA source under src/repro_torch/kernels/csrc,
            in parallel, with the build seconds and ptxas's registers, stack
-           and spills for every kernel; the sort networks must use no stack
-           and spill nothing
+           and spills for every kernel; the sort networks and every
+           instance of the fused aggregation must use no stack and spill
+           nothing
   kernel   each kernel against its plain PyTorch version (run on CPU copies
            of the same inputs) at the shapes its path gives it and at edge
            shapes (ragged D, all-zero tiles, exact half steps, K from 1 to
            90 on every side of the sort-network widths 8, 16 and 32, ties
-           of +0.0 and -0.0, quantize_out on and off for every method),
-           with device times (CUDA-graph replay between CUDA events) of the
-           kernel, L2-warm (``ms``) and L2-cold (``cold_ms``), of the plain
-           version and, where one PyTorch call computes the same function,
-           of that call; ``eager_ms`` is the kernel's time per call from
-           Python, launch path included.  ``variant`` names the design the
+           of +0.0 and -0.0, quantize_out on and off for every method, and
+           every 0/1 column for K <= 20 through both sorts), with device
+           times (CUDA-graph replay between CUDA events) of the kernel,
+           L2-warm (``ms``) and L2-cold (``cold_ms``), of the plain version
+           and, where one PyTorch call computes the same function, of that
+           call; ``eager_ms`` is the kernel's time per call from Python,
+           launch path included.  fused_agg has a row for each form the
+           round can ask of it (``form``: fedavg, cwmed, trimmed_mean trim
+           1, fedavg quantize_out).  ``variant`` names the design the
            wrapper launched, and ``alternatives`` times the other design
            in the same run through its uncounted launcher (cwmed and
            trimmed_mean in shared memory)
-  kernel_floor  dequantize on one tile
-  kernel_k90  the shared-memory sort at (90, D), which no path runs
+  kernel_floor  dequantize, quantize and fused_agg on one tile: launch,
+           ramp-up and one round trip to memory
+  kernel_k90  the shared-memory sorts at K = 90 (f32 and fused int8), which
+           no path runs
   paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
            900 writers, P = 54, Q = 36, k = 8) on one dataset, each path
            with the launch counts set to 0 just before it and read just
@@ -38,6 +44,11 @@ Phases, one JSON line each:
                     verify(), the read-back, the packed blobs equal to the
                     scorer's cached rows, one quantize_stack and one
                     fused_candidates launch per cohort and none by the packer
+           int8_<method>  2 rounds each of cwmed and trimmed_mean on the
+                    int8 chain (the fused kernel's sorts): verify(), the
+                    committed model equal to the old model plus the plain
+                    reduction of the round's int8 blocks read back off the
+                    chain, one fused_agg launch a round
            f32_<method>  2 rounds each of fedavg, cwmed, trimmed_mean with
                     use_kernels=True and an f32 chain: verify(), the
                     committed model equal to the old model plus the plain
@@ -53,6 +64,7 @@ exits non-zero and prints no result; without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -71,6 +83,10 @@ MAIN_K = 8
 # inputs read between two reads of one copy in an L2-cold timing (> 50 MB L2)
 COLD_BYTES = 100e6
 MAIN_P = 54          # trainers scored per cohort at full width
+NETWORK_WIDTHS = (8, 16, 32)   # the register sorts' slot counts
+# K of the fused aggregation's edge cases: every side of the network widths
+# and of its shared-memory column sort (K > 32)
+FUSED_EDGE_KS = (1, 3, 8, 16, 17, 32, 33, 64, 65, 90)
 # kernel -> (source under src/repro_torch/kernels/csrc, the reference's
 # pallas_call it replaces)
 KERNELS = {
@@ -241,8 +257,9 @@ def ptxas_report(log: str) -> dict:
         if n:
             rest = name[n.end():]
             base = rest[:int(n.group(1))]
-            t = re.match(r"ILi(\d+)E", rest[len(base):])
-            name = f"{base}<{t.group(1)}>" if t else base
+            t = re.match(r"I((?:L[a-z]\d+E)+)E", rest[len(base):])
+            name = (f"{base}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(1)))}>"
+                    if t else base)
         out[name] = {"registers": int(m.group(5)), "stack": int(m.group(2)),
                      "spill_stores": int(m.group(3)),
                      "spill_loads": int(m.group(4))}
@@ -251,7 +268,6 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build():
     from repro_torch.kernels import _build
-    from repro_torch.kernels.cwmed import NETWORK_WIDTHS
 
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -266,6 +282,13 @@ def phase_build():
         check(net["stack"] == 0 and net["spill_stores"] == 0
               and net["spill_loads"] == 0,
               f"sort_net_kernel<{w}> keeps its column off registers: {net}")
+    fused = ptxas["fused_agg"]
+    want = {f"fused_agg_kernel<{w},{qout}>" for w in (0,) + NETWORK_WIDTHS
+            for qout in (0, 1)} | {"fused_column_kernel"}
+    check(want <= set(fused), f"ptxas reported {sorted(fused)}, want {sorted(want)}")
+    for name, use in fused.items():
+        check(use["stack"] == 0 and use["spill_stores"] == 0
+              and use["spill_loads"] == 0, f"{name} uses stack or spills: {use}")
 
 
 def phase_kernels():
@@ -275,9 +298,9 @@ def phase_kernels():
     from repro_torch.core.aggregation import normalize_weights
     from repro_torch.kernels import ops
     from repro_torch.kernels.cwmed import (
-        _CWMED, _TRIMMED_MEAN, SHARED_MEMORY, _launch_sort, cwmed_kernel,
-        cwmed_ref, median_of_sorted, sort_width, trimmed_mean_kernel,
-        trimmed_mean_of_sorted, trimmed_mean_ref,
+        _CWMED, _TRIMMED_MEAN, _launch_sort, cwmed_kernel, cwmed_ref,
+        median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
+        trimmed_mean_ref,
     )
     from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel, fedavg_agg_ref
     from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
@@ -309,9 +332,11 @@ def phase_kernels():
     rows = []
 
     def row(name, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
-            library=None, edge=None, variant=None, alternatives=None):
+            library=None, edge=None, variant=None, alternatives=None,
+            form=None):
         """``alternatives``: {variant: fn} other designs of the kernel,
-        checked and timed in the same run beside it."""
+        checked and timed in the same run beside it; ``form``: which of a
+        kernel's forms the row times."""
         want = plain(*cpu_args)
         got = fn(*gpu_args)
         torch.cuda.synchronize()
@@ -320,7 +345,7 @@ def phase_kernels():
         b_ms, b_by = bound_ms(nbytes, flops)
         source, replaces = KERNELS[name]
         entry = {
-            "name": name, "route": "cuda",
+            "name": name, "form": form, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": replaces, "variant": variant, "launches": None,
             "max_abs_err": err, "tolerance": tol,
@@ -346,17 +371,25 @@ def phase_kernels():
         rows.append(entry)
 
     def sort_variant(K_):
-        w_ = sort_width(K_)
-        return "shared memory" if w_ == SHARED_MEMORY else f"register network W={w_}"
+        """The design the sort kernels' C entries pick for K_ rows."""
+        w_ = next((v for v in NETWORK_WIDTHS if K_ <= v), None)
+        return f"register network W={w_}" if w_ else "shared memory"
 
     def edge_quantize():
+        """Row 0 of exact half steps (each lane's product with the
+        reciprocal on a half-integer: the division fallback), row 1 of
+        normals with -0.0 in every seventh lane and an all-zero tile."""
         n, worst = 0, 0.0
         for D_ in (1, 2048, 5000, 6145):
-            xs = edge_stack(1, D_, D_)[0]
-            got = ops.quantize(xs)
-            want = ops.quantize(xs.cpu())
-            worst = max(worst, max_err(got[:2], want[:2]))
-            n += 1
+            for r in (0, 1):
+                xs = edge_stack(2, D_, D_)[r].contiguous()
+                if r:
+                    xs[::7] = -0.0
+                got = ops.quantize(xs)
+                want = ops.quantize(xs.cpu())
+                worst = max(worst, max_err(got[:2], want[:2]))
+                check(same_bits(got[1], want[1]), f"quantize scales D={D_}")
+                n += 1
         check(worst == 0.0, f"quantize edge cases differ by {worst}")
         return n, worst
 
@@ -383,7 +416,7 @@ def phase_kernels():
 
     def edge_fused():
         n, worst = 0, 0.0
-        for K_ in (1, 3, 8, 17):
+        for K_ in FUSED_EDGE_KS:
             for D_ in (2048, 5000, 6145):
                 q, s, d = ops.quantize_stack(edge_stack(K_, D_, K_ + D_).cpu())
                 wts = torch.rand((K_,), generator=torch.Generator().manual_seed(K_))
@@ -413,6 +446,30 @@ def phase_kernels():
                                           f"qout={qout}: {err} > {tol}")
                         worst = max(worst, err)
         return n, worst
+
+    def edge_fused_zero_one():
+        """Every 0/1 column for K <= 20 through the fused sorts (int8
+        columns holding the bits of their index, scales 1.0): by the 0-1
+        principle a proof of the network's median and trimmed-mean
+        positions at each K."""
+        n = 0
+        for K_ in range(1, 21):
+            cols = 2 ** K_
+            D_ = -(-cols // BLOCK_D) * BLOCK_D
+            c = torch.arange(D_) % cols
+            q = ((c[None, :] >> torch.arange(K_)[:, None]) & 1).to(torch.int8)
+            s_, w_ = torch.ones((K_, D_ // BLOCK_D)), torch.full((K_,), 1.0 / K_)
+            qg, sg, wg = q.cuda(), s_.cuda(), w_.cuda()
+            srt = torch.sort(q.to(torch.float32), dim=0).values
+            check(same_bits(fused_agg_kernel(qg, sg, wg, method="cwmed"),
+                            median_of_sorted(srt)), f"fused cwmed 0/1 K={K_}")
+            n += 1
+            for trim in range(1, (K_ - 1) // 2 + 1):
+                got = fused_agg_kernel(qg, sg, wg, method="trimmed_mean", trim=trim)
+                check(same_bits(got, trimmed_mean_of_sorted(srt, trim)),
+                      f"fused trimmed_mean 0/1 K={K_} trim={trim}")
+                n += 1
+        return n, 0.0
 
     def edge_candidates():
         n = 0
@@ -455,28 +512,55 @@ def phase_kernels():
     f32, i8 = 4, 1
     row("quantize", quantize_kernel,
         quantize_ref, (x.cpu(),), (x,), 0.0,
-        Dpad * f32 + Dpad * i8 + nblk * f32, 6 * Dpad, edge=edge_quantize)
+        Dpad * f32 + Dpad * i8 + nblk * f32, 6 * Dpad, edge=edge_quantize,
+        variant="4 warps a tile")
     row("quantize_stack",
         quantize_stack_kernel, quantize_stack_ref, (stack.cpu(),), (stack,),
         0.0, K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad,
-        edge=edge_quantize_stack)
+        edge=edge_quantize_stack, variant="4 warps a tile")
     q1, s1 = q8[0].contiguous(), s8[0].contiguous()
     row("dequantize", dequantize_kernel,
         dequantize_ref, (q1.cpu(), s1.cpu()), (q1, s1), 0.0,
         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
         library=lambda: torch.mul(q1.view(-1, BLOCK_D), s1[:, None]),
         edge=edge_dequantize, variant="4 lanes a thread")
+    # the fused aggregation's four forms at the main path's (8, Dpad);
+    # operations a lane: K dequantizes (2 each), then fedavg's K
+    # multiply-adds (2 each), or K(K-1)/2 sort compares and the reader
+    q_in = K * Dpad * i8 + K * nblk * f32
+    fused_forms = (
+        ("fedavg", dict(), q_in + K * f32 + Dpad * f32, 4 * K * Dpad,
+         edge_fused),
+        ("cwmed", dict(method="cwmed"), q_in + Dpad * f32,
+         (2 * K + K * (K - 1) // 2 + 2) * Dpad, edge_fused_zero_one),
+        ("trimmed_mean trim 1", dict(method="trimmed_mean", trim=1),
+         q_in + Dpad * f32, (2 * K + K * (K - 1) // 2 + K - 1) * Dpad, None),
+        ("fedavg quantize_out", dict(quantize_out=True),
+         q_in + K * f32 + Dpad * i8 + nblk * f32, (4 * K + 6) * Dpad, None),
+    )
+    for form, kw, nbytes, ops_, edge in fused_forms:
+        plain = functools.partial(fused_agg_ref, method=kw.get("method", "fedavg"),
+                                  trim=kw.get("trim", 1),
+                                  quantize_out=kw.get("quantize_out", False))
+        layout = ("4 lanes a thread, one block of 512 a tile" if kw.get("quantize_out")
+                  else "4 lanes a thread, 4 blocks of 128 a tile")
+        # fedavg is one FMA chain on both sides: exact given the same weights
+        row("fused_agg", functools.partial(fused_agg_kernel, **kw), plain,
+            (q8.cpu(), s8.cpu(), w.cpu()), (q8, s8, w), 0.0, nbytes, ops_,
+            edge=edge, form=form,
+            variant=(f"{sort_variant(K)}, {layout}" if "method" in kw else layout))
+
     # one tile: launch, ramp-up and one round trip to memory, which no
     # layout of the bytes removes
-    emit(phase="kernel_floor", name="dequantize", shape=[[BLOCK_D], [1]],
-         floor_ms=time_ms(lambda: dequantize_kernel(q1[:BLOCK_D], s1[:1])))
-    fedavg_tol = 1e-6 * float(fused_agg_ref(q8.cpu(), s8.cpu(), w.cpu()).abs().max())
-    row("fused_agg",
-        lambda q, s, w_: fused_agg_kernel(q, s, w_),
-        lambda q, s, w_: fused_agg_ref(q, s, w_),
-        (q8.cpu(), s8.cpu(), w.cpu()), (q8, s8, w), fedavg_tol,
-        K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32, 4 * K * Dpad,
-        edge=edge_fused)
+    x1 = x[:BLOCK_D].contiguous()
+    qt, st = q8[:, :BLOCK_D].contiguous(), s8[:, :1].contiguous()
+    for name, fn, shape in (
+            ("dequantize", lambda: dequantize_kernel(q1[:BLOCK_D], s1[:1]),
+             [[BLOCK_D], [1]]),
+            ("quantize", lambda: quantize_kernel(x1), [[BLOCK_D]]),
+            ("fused_agg", lambda: fused_agg_kernel(qt, st, w),
+             [[K, BLOCK_D], [K, 1], [K]])):
+        emit(phase="kernel_floor", name=name, shape=shape, floor_ms=time_ms(fn))
 
     # the committee_int8 scorer's candidates: P rows of the padded width
     P = MAIN_P
@@ -507,13 +591,13 @@ def phase_kernels():
         library=lambda: torch.quantile(xs, half, dim=0),
         variant=sort_variant(K),
         alternatives={"shared memory": lambda a: _launch_sort(
-            a, _CWMED, 0, SHARED_MEMORY)})
+            a, _CWMED, 0, force_shared=True)})
     row("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
         lambda a: trimmed_mean_ref(a, 1), (xs.cpu(),), (xs,), 0.0,
         K * D * f32 + D * f32, sort_ops + (K - 1) * D,
         variant=sort_variant(K),
         alternatives={"shared memory": lambda a: _launch_sort(
-            a, _TRIMMED_MEAN, 1, SHARED_MEMORY)})
+            a, _TRIMMED_MEAN, 1, force_shared=True)})
 
     # the shared-memory sort at a full Basic-FL cohort's K, which no path
     # runs (the baselines aggregate with the plain reductions)
@@ -531,6 +615,23 @@ def phase_kernels():
         emit(phase="kernel_k90", name=method, variant=sort_variant(K90),
              shape=[K90, D], max_abs_err=err, ms=time_ms(lambda: fn(x90)),
              cold_ms=cold_ms(fn, (x90,)), bound_ms=b_ms, bound_by=b_by)
+    # the fused kernel's column sort at the same K, from int8
+    x90p = torch.zeros((K90, Dpad), device="cuda")
+    x90p[:, :D] = x90
+    q90, s90 = quantize_stack_ref(x90p.cpu())
+    w90 = torch.full((K90,), 1.0 / K90)
+    want = fused_agg_ref(q90, s90, w90, method="cwmed")
+    q90, s90, w90 = q90.cuda(), s90.cuda(), w90.cuda()
+    fn = functools.partial(fused_agg_kernel, method="cwmed")
+    err = max_err(fn(q90, s90, w90), want)
+    check(err == 0.0, f"fused_agg cwmed K={K90}: max_abs_err {err}")
+    b_ms, b_by = bound_ms(K90 * Dpad * i8 + K90 * nblk * f32 + Dpad * f32,
+                          (2 * K90 + K90 * (K90 - 1) // 2 + 2) * Dpad)
+    emit(phase="kernel_k90", name="fused_agg", form="cwmed",
+         variant="shared-memory column sort", shape=[K90, Dpad],
+         max_abs_err=err, ms=time_ms(lambda: fn(q90, s90, w90), iters=5, reps=4),
+         cold_ms=cold_ms(fn, (q90, s90, w90), reps=1), bound_ms=b_ms,
+         bound_by=b_by)
     return rows
 
 
@@ -756,6 +857,48 @@ def path_f32(ds, method: str):
     return counted(path, drive, {kernel: rounds})
 
 
+def path_int8_sort(ds, method: str):
+    """The int8 chain aggregated by the fused kernel's cwmed or trimmed mean:
+    verify(), and the committed model equal to the old one plus the plain
+    reduction of the round's int8 blocks as stored on the chain (by value
+    for the median, bit for bit for the trimmed mean)."""
+    import torch
+
+    from repro_torch.core.aggregation import apply_update
+    from repro_torch.kernels.fused_agg import fused_agg_ref
+    from repro_torch.tree import ravel_pytree
+
+    path = f"int8_{method}"
+    rounds = 2
+
+    def drive():
+        rt = build(ds, {"quantize_chain": True, "use_kernels": True,
+                        "aggregation": method})
+        run_rounds(path, rt, rounds)
+        verify(path, rt, rounds)
+        t = rounds - 1
+        blobs = rt.chain.update_payloads_at_round(t, decode=False)
+        q = torch.stack([b["q"] for b in blobs]).cpu()
+        s = torch.stack([b["scales"] for b in blobs]).cpu()
+        plain = fused_agg_ref(q, s, torch.ones(len(blobs)), method, rt.cfg.trim)
+        old = rt.chain.model_at_round(t)
+        flat_old, unravel = ravel_pytree(old)
+        agg = plain[:blobs[0]["d"]].to(flat_old.device)
+        replay = ravel_pytree(apply_update(old, unravel(agg)))[0]
+        new = ravel_pytree(rt.chain.model_at_round(t + 1))[0]
+        exact = (torch.equal(replay, new) if method == "cwmed"
+                 else same_bits(replay, new))
+        emit(phase="replay", path=path, round=t, rows=q.shape[0],
+             exact=exact, max_abs_err=float((replay - new).abs().max()))
+        check(exact, f"{path}: committed model differs from the plain replay")
+        return rt
+
+    counts, rt = counted(path, drive, {"quantize_stack": rounds, "fused_agg": rounds})
+    check(counts["fused_agg"] == rounds,
+          f"{path}: fused_agg launched {counts['fused_agg']} times in {rounds} rounds")
+    return counts, rt
+
+
 def path_baselines(ds) -> None:
     """The committee-free baselines at full width through
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
@@ -855,6 +998,8 @@ def main(argv) -> int:
     emit(phase="data", seconds=time.perf_counter() - t0,
          clients=ds.num_clients, test=len(ds.test_labels))
     paths = {"int8": path_int8(ds), "int8_committee": path_int8_committee(ds)}
+    for m in ("cwmed", "trimmed_mean"):
+        paths[f"int8_{m}"] = path_int8_sort(ds, m)
     for m in ("fedavg", "cwmed", "trimmed_mean"):
         paths[f"f32_{m}"] = path_f32(ds, m)
     path_baselines(ds)
@@ -864,7 +1009,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         for name, (_, rt) in paths.items():
             phase_profile(name, rt)
-    keys = ("name", "route", "source", "replaces", "variant", "launches",
+    keys = ("name", "form", "route", "source", "replaces", "variant", "launches",
             "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit(kernels=[{k: r[k] for k in keys} for r in rows])

@@ -9,103 +9,246 @@
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The main path's fedavg over an (8,
 // 430080) int8 stack reads 3.4 MB of int8 plus 13 kB of scales and writes
-// 1.7 MB of f32: about 1.5 us.  fedavg does four flops per input byte; the
-// sort methods do O(K^2) compares per lane, which at K = 8 is still under
-// the byte time.  The design keeps the stack's only read an int8 read: one
-// block per 2048-lane tile, each thread owns 8 consecutive lanes, loads
-// each row's 8 lanes as one 8-byte word, and keeps every dequantized value
-// in registers (a per-lane array for the sorts), so the f32 (K, D) stack
-// never exists in device memory.  With quantize_out the block's amax comes
-// from warp shuffles and shared memory and the int8 tile is written
-// directly.
+// 1.7 MB of f32: about 1.5 us.  One launch of that size is one wave of
+// short blocks, so what costs beyond the bytes is latency: the launch, the
+// round trips to memory each thread waits on, and the instructions every
+// thread issues after its loads arrive.  The design:
+//   - Each thread owns 4 consecutive lanes: a row's int8 is one 4-byte load
+//     (a warp reads 128 contiguous bytes of it) and the f32 result one
+//     16-byte store (a warp writes 512 contiguous bytes).  Blocks of 128
+//     threads, 4 to a tile; with quantize_out one block of 512 threads
+//     covers the tile, whose amax it needs.
+//   - fedavg loads rows in compile-time chunks of 8: every row's word, scale
+//     and weight of a chunk is asked for before the first multiply-add, so
+//     one round trip serves all K <= 8 rows of the main path.  Bringing
+//     each row's block segment into shared memory by one thread's 1-D bulk
+//     copies on an mbarrier measured slower on the H100 (PERF.md).
+//   - A byte becomes an f32 by a byte permute and an exact subtraction
+//     (common.cuh lane_value), not by a conversion instruction, which the
+//     H100 issues at a quarter of the rate; quantize_out packs its bytes
+//     the same way (quantize4).
+//   - cwmed and trimmed_mean for K <= 32 load the thread's K words and
+//     scales at once (rows past K reload row K - 1, so no load is
+//     predicated), then for each of its 4 lanes fill W = 8, 16 or 32
+//     register slots (rows past K become 1 * FLT_MAX, set once per row, not
+//     per lane), sort them with sort_net.cuh's Batcher network and read the
+//     median or trimmed mean without a run-time index: no stack, no spills.
+//     The trimmed mean weighs the sorted slots by 1.0 or 0.0 from a kernel
+//     argument, in the constant bank, so its reader is one fused
+//     multiply-add a slot; f32(1 / kept) comes from the host.  A sort
+//     issues several times fedavg's instructions for the same bytes, so on
+//     the H100 it is bound by instruction issue more than by bytes, and an
+//     instruction saved a lane shows in its time (PERF.md).
+//   - For K > 32 (fused_column_kernel) one block per tile sorts each lane's
+//     column in shared memory by insertion, L lanes at a time, L shrinking
+//     (256, 128, ... 1) until the K-deep columns fit the card's opt-in
+//     shared memory; only a K too deep for one lane is refused.  It is
+//     correct, not fast: about K^2 / 4 dependent shared-memory shifts a
+//     lane.
 //
 // Numerics follow the reference as compiled: fedavg dequantizes with one
 // rounding (__fmul_rn) and accumulates one row at a time with a fused
-// multiply-add, acc = fma(q * s, w, acc), which is what XLA emits for the
-// reference's sum(rows * w); the median of an even count is
-// 0.5 * (a + b); the trimmed mean is a sequential sum of the kept sorted
-// rows times the f32 reciprocal of their count (see common.cuh).
+// multiply-add, acc = fma(q * s, w, acc) in k order from acc = 0, which is
+// what XLA emits for the reference's sum(rows * w); the sort methods are
+// sort_net.cuh's; requantizing uses common.cuh's scale and rounding.
 #include "common.cuh"
+#include "sort_net.cuh"
 
 namespace repro {
 
-constexpr int FEDAVG = 0, CWMED = 1, TRIMMED_MEAN = 2;
-// Largest K the sort methods take: the per-lane array lives in registers /
-// local memory.
-constexpr int MAX_SORT_K = 64;
+constexpr int FEDAVG = 0;
+constexpr int LANES = 4;                       // consecutive lanes a thread
+constexpr int AGG_THREADS = 128;               // block without quantize_out
+constexpr int TILE_THREADS = BLOCK_D / LANES;  // 512: one block a tile
+constexpr int ROW_CHUNK = 8;                   // fedavg rows a load batch
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// W == 0: fedavg; W = 8, 16, 32: cwmed or trimmed_mean (method) over K <= W
+// rows.  QOUT: one block per tile, requantized output.
+template <int W, bool QOUT>
+__global__ void __launch_bounds__(QOUT ? TILE_THREADS : AGG_THREADS)
 fused_agg_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
                  const float* __restrict__ w, float* __restrict__ out,
                  int8_t* __restrict__ qout, float* __restrict__ sout, int K,
-                 int nblk, int method, int trim) {
-  __shared__ float red[WARPS + 1];
-  const int tile = blockIdx.x;
-  const size_t dpad = static_cast<size_t>(nblk) * BLOCK_D;
-  const size_t lane0 = static_cast<size_t>(tile) * BLOCK_D +
-                       static_cast<size_t>(threadIdx.x) * PER_THREAD;
-  float acc[PER_THREAD];
+                 unsigned nblk, int method, KeptSlots kept, float inv_keep,
+                 uint32_t exponent_bytes) {
+  const unsigned dpad = nblk * BLOCK_D;
+  const unsigned lane0 = (blockIdx.x * blockDim.x + threadIdx.x) * LANES;
+  const unsigned tile = lane0 / BLOCK_D;
+  float r[LANES];
 
-  if (method == FEDAVG) {
+  if constexpr (W == 0) {
 #pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float sk = s[static_cast<size_t>(k) * nblk + tile];
-      const float wk = w[k];
-      const uint2 raw =
-          *reinterpret_cast<const uint2*>(q + static_cast<size_t>(k) * dpad + lane0);
+    for (int l = 0; l < LANES; ++l) r[l] = 0.0f;
+    for (int c = 0; c < K; c += ROW_CHUNK) {
+      uint32_t word[ROW_CHUNK];
+      float sc[ROW_CHUNK], wt[ROW_CHUNK];
 #pragma unroll
-      for (int j = 0; j < PER_THREAD; ++j) {
-        const float deq = __fmul_rn(static_cast<float>(unpack8(raw, j)), sk);
-        acc[j] = __fmaf_rn(deq, wk, acc[j]);
+      for (int j = 0; j < ROW_CHUNK; ++j) {
+        const bool in = c + j < K;
+        const size_t k = static_cast<size_t>(c + j);
+        word[j] = in ? load_word(q + k * dpad + lane0) : 0u;
+        sc[j] = in ? s[k * nblk + tile] : 0.0f;
+        wt[j] = in ? w[k] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < ROW_CHUNK; ++j) {
+        if (c + j < K) {
+          const uint32_t b = word[j] ^ BYTE_BIAS;
+#pragma unroll
+          for (int l = 0; l < LANES; ++l)
+            r[l] = __fmaf_rn(__fmul_rn(lane_value(b, l, exponent_bytes), sc[j]),
+                             wt[j], r[l]);
+        }
       }
     }
   } else {
-    const float inv_keep = __fdiv_rn(1.0f, static_cast<float>(K - 2 * trim));
-    float v[MAX_SORT_K];
-    for (int j = 0; j < PER_THREAD; ++j) {
-      for (int k = 0; k < K; ++k)
-        v[k] = __fmul_rn(
-            static_cast<float>(q[static_cast<size_t>(k) * dpad + lane0 + j]),
-            s[static_cast<size_t>(k) * nblk + tile]);
-      // insertion sort, ascending (values are finite and never -0.0, so
-      // any correct sort gives the reference network's order statistics)
-      for (int a = 1; a < K; ++a) {
-        const float key = v[a];
-        int b = a - 1;
-        while (b >= 0 && v[b] > key) {
-          v[b + 1] = v[b];
-          --b;
+    // Rows past K reload row K - 1 (no predicated loads) and become every
+    // byte 1 times FLT_MAX, which sorts last: q * s is finite, for the
+    // chain's scales are.
+    const int8_t* qt = q + lane0;
+    const float* st = s + tile;
+    uint32_t word[W];
+    float sc[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const unsigned row = static_cast<unsigned>(min(k, K - 1));
+      word[k] = load_word(qt + static_cast<size_t>(row) * dpad) ^ BYTE_BIAS;
+      sc[k] = st[static_cast<size_t>(row) * nblk];
+    }
+    if (K < W) {
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        if (k >= K) {
+          word[k] = 0x01010101u ^ BYTE_BIAS;
+          sc[k] = 3.40282347e38f;
         }
-        v[b + 1] = key;
-      }
-      if (method == CWMED) {
-        acc[j] = (K & 1) ? v[K / 2]
-                         : __fmul_rn(0.5f, __fadd_rn(v[K / 2 - 1], v[K / 2]));
-      } else {
-        float sum = v[trim];
-        for (int k = trim + 1; k < K - trim; ++k) sum = __fadd_rn(sum, v[k]);
-        acc[j] = __fmul_rn(sum, inv_keep);
-      }
+    }
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) {
+      float v[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        v[k] = __fmul_rn(lane_value(word[k], l, exponent_bytes), sc[k]);
+      sort_slots(v);
+      r[l] = method == CWMED ? median_of_slots(v, K)
+                             : trimmed_mean_of_finite_slots(v, kept, inv_keep);
     }
   }
 
-  if (qout == nullptr) {
-    *reinterpret_cast<float4*>(out + lane0) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(out + lane0 + 4) =
-        make_float4(acc[4], acc[5], acc[6], acc[7]);
-    return;
+  if constexpr (!QOUT) {
+    *reinterpret_cast<float4*>(out + lane0) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+    __shared__ float red[TILE_THREADS / 32];
+    float m = 0.0f;
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) m = fmaxf(m, fabsf(r[l]));
+    const TileQuantizer tq = tile_quantizer(block_max<TILE_THREADS / 32>(m, red));
+    *reinterpret_cast<uint32_t*>(qout + lane0) =
+        quantize4(r[0], r[1], r[2], r[3], tq);
+    if (threadIdx.x == 0) sout[tile] = tq.scale;
   }
+}
+
+// K > 32: one block per tile, L = blockDim.x threads, L lanes at a time.
+// Shared memory: the K-deep columns (slot k of thread t at col[k * L + t],
+// so a block's threads hit distinct banks), the tile's BLOCK_D results and
+// its amax.
+__global__ void fused_column_kernel(const int8_t* __restrict__ q,
+                                    const float* __restrict__ s,
+                                    float* __restrict__ out,
+                                    int8_t* __restrict__ qout,
+                                    float* __restrict__ sout, int K, int nblk,
+                                    int method, int trim, float inv_keep) {
+  extern __shared__ float smem[];
+  const int L = blockDim.x, t = threadIdx.x, tile = blockIdx.x;
+  float* col = smem + t;
+  float* res = smem + static_cast<size_t>(K) * L;
+  unsigned* amax = reinterpret_cast<unsigned*>(res + BLOCK_D);
+  const size_t dpad = static_cast<size_t>(nblk) * BLOCK_D;
+  const size_t first = static_cast<size_t>(tile) * BLOCK_D;
+  if (t == 0) *amax = 0u;
+  __syncthreads();
   float m = 0.0f;
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) m = fmaxf(m, fabsf(acc[j]));
-  const float scale = tile_scale(block_max(m, red));
-  int8_t qv[PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) qv[j] = quantize_one(acc[j], scale);
-  *reinterpret_cast<uint2*>(qout + lane0) = pack8(qv);
-  if (threadIdx.x == 0) sout[tile] = scale;
+  for (int at = t; at < BLOCK_D; at += L) {
+    for (int k = 0; k < K; ++k)
+      col[k * L] = __fmul_rn(static_cast<float>(q[k * dpad + first + at]),
+                             s[static_cast<size_t>(k) * nblk + tile]);
+    for (int a = 1; a < K; ++a) {
+      const float key = col[a * L];
+      int b = a - 1;
+      while (b >= 0 && col[b * L] > key) {
+        col[(b + 1) * L] = col[b * L];
+        --b;
+      }
+      col[(b + 1) * L] = key;
+    }
+    float v;
+    if (method == CWMED) {
+      v = (K & 1) ? col[(K / 2) * L]
+                  : __fmul_rn(0.5f, __fadd_rn(col[(K / 2 - 1) * L],
+                                              col[(K / 2) * L]));
+    } else {
+      float sum = col[trim * L];
+      for (int k = trim + 1; k < K - trim; ++k) sum = __fadd_rn(sum, col[k * L]);
+      v = __fmul_rn(sum, inv_keep);
+    }
+    if (qout == nullptr) {
+      out[first + at] = v;
+    } else {
+      res[at] = v;
+      m = fmaxf(m, fabsf(v));
+    }
+  }
+  if (qout == nullptr) return;
+  // non-negative floats order as their bits do
+  atomicMax(amax, __float_as_uint(m));
+  __syncthreads();
+  const float scale = tile_scale(__uint_as_float(*amax));
+  for (int at = t; at < BLOCK_D; at += L)
+    qout[first + at] = static_cast<int8_t>(quantize_bits(res[at], scale) & 0xffu);
+  if (t == 0) sout[tile] = scale;
+}
+
+
+std::atomic<int> column_smem_granted[MAX_DEVICES];
+
+int launch_column(const int8_t* q, const float* s, float* out, int8_t* qout,
+                  float* sout, int K, int nblk, int method, int trim,
+                  float inv_keep, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  int err = device_smem(&dev, &optin);
+  if (err != cudaSuccess) return err;
+  const long long fixed = 4LL * (BLOCK_D + 1), column = 4LL * K;
+  int L = 256;
+  while (L > 1 && fixed + column * L > optin) L >>= 1;
+  if (fixed + column * L > optin) return cudaErrorInvalidValue;
+  const int bytes = static_cast<int>(fixed + column * L);
+  err = allow_smem(fused_column_kernel, dev, bytes, column_smem_granted);
+  if (err != cudaSuccess) return err;
+  fused_column_kernel<<<nblk, L, bytes, stream>>>(q, s, out, qout, sout, K,
+                                                  nblk, method, trim, inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_tiles(const int8_t* q, const float* s, const float* w, float* out,
+                 int8_t* qout, float* sout, int K, int nblk, int method,
+                 int trim, float inv_keep, cudaStream_t stream) {
+  const KeptSlots kept = kept_slots(K, trim);
+  if (qout != nullptr)
+    fused_agg_kernel<W, true><<<nblk, TILE_THREADS, 0, stream>>>(
+        q, s, w, out, qout, sout, K, nblk, method, kept, inv_keep,
+        F32_EXPONENT_BYTES);
+  else
+    fused_agg_kernel<W, false>
+        <<<nblk * (TILE_THREADS / AGG_THREADS), AGG_THREADS, 0, stream>>>(
+            q, s, w, out, qout, sout, K, nblk, method, kept, inv_keep,
+            F32_EXPONENT_BYTES);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro
@@ -113,22 +256,34 @@ fused_agg_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
 // q: (K, nblk * 2048) int8, s: (K, nblk) f32, w: (K,) f32 normalized.
 // quantize_out == 0: out (nblk * 2048,) f32 (qout, sout unused).
 // quantize_out != 0: qout (nblk * 2048,) int8 and sout (nblk,) f32.
+// Any K for fedavg; cwmed and trimmed_mean take any K whose column fits one
+// lane's shared memory.  A row holds at most 2^20 tiles (2^31 lanes).
+// q must be 4-byte aligned, out 16-byte aligned.
 extern "C" int repro_fused_agg(const void* q, const void* s, const void* w,
                                void* out, void* qout, void* sout, int K,
                                int nblk, int method, int trim,
                                int quantize_out, void* stream) {
-  if (K <= 0 || nblk <= 0 || method < repro::FEDAVG ||
+  if (K <= 0 || nblk <= 0 || nblk > (1 << 20) || method < repro::FEDAVG ||
       method > repro::TRIMMED_MEAN)
-    return cudaErrorInvalidValue;
-  if (method != repro::FEDAVG && K > repro::MAX_SORT_K)
     return cudaErrorInvalidValue;
   if (method == repro::TRIMMED_MEAN && (trim < 0 || 2 * trim >= K))
     return cudaErrorInvalidValue;
-  repro::fused_agg_kernel<<<nblk, repro::THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<const float*>(w), static_cast<float*>(out),
-      quantize_out ? static_cast<int8_t*>(qout) : nullptr,
-      static_cast<float*>(sout), K, nblk, method, trim);
-  return static_cast<int>(cudaGetLastError());
+  if (method != repro::TRIMMED_MEAN) trim = 0;
+  // f32(1 / kept), rounded as the device's __fdiv_rn rounds it
+  const float inv_keep = 1.0f / static_cast<float>(K - 2 * trim);
+  const int8_t* q8 = static_cast<const int8_t*>(q);
+  const float* sf = static_cast<const float*>(s);
+  const float* wf = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  int8_t* qo = quantize_out ? static_cast<int8_t*>(qout) : nullptr;
+  float* so = static_cast<float*>(sout);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int width = method == repro::FEDAVG ? -1 : repro::network_width(K);
+  switch (width) {
+    case -1: return repro::launch_tiles<0>(q8, sf, wf, o, qo, so, K, nblk, method, trim, inv_keep, st);
+    case 8: return repro::launch_tiles<8>(q8, sf, wf, o, qo, so, K, nblk, method, trim, inv_keep, st);
+    case 16: return repro::launch_tiles<16>(q8, sf, wf, o, qo, so, K, nblk, method, trim, inv_keep, st);
+    case 32: return repro::launch_tiles<32>(q8, sf, wf, o, qo, so, K, nblk, method, trim, inv_keep, st);
+    default: return repro::launch_column(q8, sf, o, qo, so, K, nblk, method, trim, inv_keep, st);
+  }
 }

@@ -1,20 +1,30 @@
 // Per-tile symmetric int8 quantize / dequantize: the chain's update codec.
 //
 // Replaces the reference's Pallas TPU kernels in src/repro/kernels/quantize.py:
-//   quantize_kernel       (:34, pallas_call :39)  -- the K = 1 case below
+//   quantize_kernel       (:34, pallas_call :39)  -- repro_quantize_rows, K = 1
 //   quantize_stack_kernel (:66, pallas_call :74)  -- repro_quantize_rows
 //   dequantize_kernel     (:92, pallas_call :97)  -- repro_dequantize
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Quantizing the main path's (8,
 // 430080) stack reads 13.8 MB of f32 and writes 3.4 MB of int8 plus 6.7 kB
-// of scales, about 5.1 us; dequantizing one (430080,) blob moves 2.2 MB,
-// about 0.6 us.  Each does a handful of operations per byte, far below the
-// card's compute rate.  The design reads each input once and writes each
-// output once: a block holds one (row, tile) in registers (8 lanes a
-// thread, two 16-byte loads), reduces amax with warp shuffles and 9 floats
-// of shared memory, and stores the eight int8 lanes as one 8-byte word, so
-// neighbouring threads touch neighbouring addresses.  Nothing is staged
-// through device memory between the max and the quantize.
+// of scales, about 5.1 us; one (430080,) vector moves 2.2 MB, about 0.6 us;
+// dequantizing one (430080,) blob moves 2.2 MB, about 0.6 us.  Each does a
+// handful of operations per byte, far below the card's compute rate.
+//
+// Quantize: one block of 4 warps per (row, tile).  Thread t takes the
+// tile's lanes 4t + 512j for j < 4: four 16-byte loads, each covering 512
+// contiguous bytes across a warp, all issued before the amax, which takes
+// warp shuffles and one barrier over 4 floats of shared memory; then each
+// thread writes its 4 int8 lanes of a step as one 4-byte word (128
+// contiguous bytes a warp).  The bytes are rounded from x * (1 / scale)
+// without a conversion instruction and fall back to the IEEE division only
+// near a half-integer (common.cuh quantize4): the division's slow path,
+// taken for every zero, made the tile holding a vector's zero padding the
+// launch's straggler.  This replaced 256 threads of 8 consecutive lanes a
+// tile (16-byte accesses 32 bytes apart across a warp, a two-barrier amax,
+// a division per lane).  One warp a tile (16 loads a thread, no barrier)
+// measured slower on the H100 (PERF.md): 210 warps for one vector leave
+// each warp's 64 lanes of serial work on the critical path.
 //
 // Dequantize runs on every update block read off the chain, one blob a
 // call.  A launch that moves 2.2 MB is short enough that launch and
@@ -34,25 +44,33 @@
 
 namespace repro {
 
-__global__ void __launch_bounds__(THREADS)
-quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ s, int nblk) {
-  __shared__ float red[WARPS + 1];
-  const int tile = blockIdx.x, row = blockIdx.y;
-  const size_t base = (static_cast<size_t>(row) * nblk + tile) * BLOCK_D +
-                      static_cast<size_t>(threadIdx.x) * PER_THREAD;
-  const float4 a = *reinterpret_cast<const float4*>(x + base);
-  const float4 b = *reinterpret_cast<const float4*>(x + base + 4);
-  const float v[PER_THREAD] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+constexpr int QUANT_WARPS = 4;                       // warps a tile
+constexpr int QUANT_SPAN = 32 * 4 * QUANT_WARPS;     // lanes a step
+constexpr int QUANT_STEPS = BLOCK_D / QUANT_SPAN;    // float4 a thread
+
+// x: whole tiles, contiguous -> q (same lanes) int8, s (one a tile).  One
+// block per tile.
+__global__ void __launch_bounds__(32 * QUANT_WARPS)
+quantize_tiles_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                      float* __restrict__ s) {
+  __shared__ float red[QUANT_WARPS];
+  const size_t tile = blockIdx.x;
+  const size_t first = tile * BLOCK_D + 4 * threadIdx.x;
+  float4 v[QUANT_STEPS];
+#pragma unroll
+  for (int j = 0; j < QUANT_STEPS; ++j)
+    v[j] = *reinterpret_cast<const float4*>(x + first + QUANT_SPAN * j);
   float m = 0.0f;
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) m = fmaxf(m, fabsf(v[i]));
-  const float scale = tile_scale(block_max(m, red));
-  int8_t out[PER_THREAD];
+  for (int j = 0; j < QUANT_STEPS; ++j)
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)),
+                       fmaxf(fabsf(v[j].z), fabsf(v[j].w))));
+  const TileQuantizer tq = tile_quantizer(block_max<QUANT_WARPS>(m, red));
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) out[i] = quantize_one(v[i], scale);
-  *reinterpret_cast<uint2*>(q + base) = pack8(out);
-  if (threadIdx.x == 0) s[static_cast<size_t>(row) * nblk + tile] = scale;
+  for (int j = 0; j < QUANT_STEPS; ++j)
+    *reinterpret_cast<uint32_t*>(q + first + QUANT_SPAN * j) =
+        quantize4(v[j].x, v[j].y, v[j].z, v[j].w, tq);
+  if (threadIdx.x == 0) s[tile] = tq.scale;
 }
 
 // out[i] = q[i] * s[i / BLOCK_D] over a contiguous run of whole tiles: one
@@ -77,13 +95,17 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
 }  // namespace repro
 
 // x: (K, nblk * 2048) f32 -> q: same shape int8, s: (K, nblk) f32.
+// x must be 16-byte and q 4-byte aligned.
 extern "C" int repro_quantize_rows(const void* x, void* q, void* s, int K,
                                    int nblk, void* stream) {
-  if (K <= 0 || nblk <= 0 || K > 65535) return cudaErrorInvalidValue;
-  repro::quantize_rows_kernel<<<dim3(nblk, K), repro::THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  if (K <= 0 || nblk <= 0) return cudaErrorInvalidValue;
+  const long long ntiles = static_cast<long long>(K) * nblk;
+  if (ntiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  repro::quantize_tiles_kernel<<<static_cast<unsigned>(ntiles),
+                                 32 * repro::QUANT_WARPS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<int8_t*>(q),
-      static_cast<float*>(s), nblk);
+      static_cast<float*>(s));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -100,3 +122,4 @@ extern "C" int repro_dequantize(const void* q, const void* s, void* out,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -6,7 +6,7 @@ Port of ``repro/kernels/cwmed.py`` (``cwmed_kernel``,
 reference sorts the K rows of a tile with an odd-even network; the CUDA
 kernels of ``csrc/f32_agg.cu`` sort each lane's K values, in registers with
 a Batcher network of width 8, 16 or 32 for K <= 32 and in shared memory
-above that (``sort_width`` picks).  All give the same order statistics, so
+above that (the C entry picks by K).  All give the same order statistics, so
 medians agree by value (a tie of +0.0 and -0.0 may come out with either
 sign) and trimmed means bit for bit.
 
@@ -25,18 +25,6 @@ from repro_torch.numerics import recip_f32
 
 # method codes of repro_sort_agg in csrc/f32_agg.cu
 _CWMED, _TRIMMED_MEAN = 1, 2
-# register-network widths of repro_sort_agg; 0 selects its shared-memory sort
-NETWORK_WIDTHS = (8, 16, 32)
-SHARED_MEMORY = 0
-
-
-def sort_width(K: int) -> int:
-    """The sort path for K rows: the smallest network width that holds K,
-    or ``SHARED_MEMORY`` for K > 32."""
-    for w in NETWORK_WIDTHS:
-        if K <= w:
-            return w
-    return SHARED_MEMORY
 
 
 def median_of_sorted(rows: torch.Tensor) -> torch.Tensor:
@@ -65,15 +53,17 @@ def trimmed_mean_ref(stack: torch.Tensor, trim: int) -> torch.Tensor:
 
 
 def _launch_sort(stack: torch.Tensor, method: int, trim: int,
-                 width: int) -> torch.Tensor:
-    """repro_sort_agg on the sort path ``width``; counts no launch (the
+                 force_shared: bool = False) -> torch.Tensor:
+    """repro_sort_agg: the register network for K <= 32, the shared-memory
+    sort above that or with ``force_shared``; counts no launch (the
     wrappers do)."""
     _build.require_cuda(stack)
     K, D = stack.shape
     out = torch.empty((D,), dtype=torch.float32, device=stack.device)
     lib = _build.load("f32_agg")
     code = lib.repro_sort_agg(stack.data_ptr(), out.data_ptr(), K, D, method,
-                              trim, width, _build.stream_handle(stack))
+                              trim, int(force_shared),
+                              _build.stream_handle(stack))
     _build.check(lib, code, f"repro_sort_agg (K={K}; a K whose columns do "
                             f"not fit in shared memory is refused)")
     return out
@@ -85,7 +75,7 @@ def cwmed_kernel(stack: torch.Tensor) -> torch.Tensor:
     _build.check_f32_stack(stack, "cwmed_kernel")
     if stack.device.type == "cpu":
         return cwmed_ref(stack)
-    out = _launch_sort(stack, _CWMED, 0, sort_width(stack.shape[0]))
+    out = _launch_sort(stack, _CWMED, 0)
     cwmed_kernel.launches += 1
     return out
 
@@ -101,7 +91,7 @@ def trimmed_mean_kernel(stack: torch.Tensor, *, trim: int) -> torch.Tensor:
         raise ValueError(f"trim={trim} too large for K={K}")
     if stack.device.type == "cpu":
         return trimmed_mean_ref(stack, trim)
-    out = _launch_sort(stack, _TRIMMED_MEAN, trim, sort_width(K))
+    out = _launch_sort(stack, _TRIMMED_MEAN, trim)
     trimmed_mean_kernel.launches += 1
     return out
 

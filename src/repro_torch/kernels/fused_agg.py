@@ -8,6 +8,10 @@ registers and reduced per lane
 ``quantize_out`` each output tile is requantized in the same pass, so the
 f32 (K, D) stack never exists in device memory.
 
+Every method takes any K, as the reference's does: on the card the sorts
+run in registers for K <= 32 and in shared memory above that, and only a
+K whose column does not fit one lane's shared memory is refused.
+
 ``fused_agg_kernel`` dispatches on the stack's device: a CPU tensor goes to
 ``fused_agg_ref`` (dequantize the whole stack, then reduce — the staged
 math of ``repro/kernels/ref.py``); a CUDA tensor launches the kernel of
@@ -25,8 +29,6 @@ from repro_torch.kernels.quantize import dequantize_stack_ref, quantize_ref
 from repro_torch.kernels.tiling import BLOCK_D
 
 METHODS = ("fedavg", "cwmed", "trimmed_mean")
-# largest K the sort methods take (per-lane array in csrc/fused_agg.cu)
-MAX_SORT_K = 64
 
 
 def reduce_rows(stack: torch.Tensor, weights: torch.Tensor, method: str,
@@ -65,8 +67,6 @@ def _check(q, scales, weights, method: str, trim: int) -> None:
                          f"want ({K},) float32")
     if method == "trimmed_mean" and not 0 <= 2 * trim < K:
         raise ValueError(f"trim={trim} too large for K={K}")
-    if method != "fedavg" and K > MAX_SORT_K:
-        raise ValueError(f"{method} takes K <= {MAX_SORT_K}, got {K}")
 
 
 def fused_agg_kernel(q: torch.Tensor, scales: torch.Tensor,
@@ -98,7 +98,8 @@ def fused_agg_kernel(q: torch.Tensor, scales: torch.Tensor,
         METHODS.index(method), trim, int(quantize_out),
         _build.stream_handle(q),
     )
-    _build.check(lib, code, "repro_fused_agg")
+    _build.check(lib, code, f"repro_fused_agg (K={K}; a sort whose K-deep "
+                            f"column does not fit in shared memory is refused)")
     fused_agg_kernel.launches += 1
     return (q_out, s_out) if quantize_out else out
 

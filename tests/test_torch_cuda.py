@@ -9,7 +9,9 @@ The plain versions run on CPU copies of the same inputs.  quantize,
 dequantize, the fused candidates and the f32 fedavg (given the same
 weights) and trimmed mean are bit-exact; the f32 median is equal by value
 (+0.0 and -0.0 tie in a sort); the fused aggregation is exact for cwmed
-and trimmed_mean and within rtol 1e-6 for fedavg (normalized weights).
+and trimmed_mean and within rtol 1e-6 for fedavg when each device
+normalizes the weights itself, and bit-exact for every method at every K
+given the same normalized weights.
 The trimmed mean of a lane whose zeros carry random signs is held by
 value: where the trim cuts a run of tied zeros, which zeros are kept
 depends on the sort's tie order (K = 3 over +0, -0, +0 keeps either), and
@@ -21,15 +23,17 @@ import torch
 from repro_torch.core.aggregation import normalize_weights
 from repro_torch.kernels import ops
 from repro_torch.kernels.cwmed import (
-    SHARED_MEMORY, cwmed_kernel, median_of_sorted, sort_width,
-    trimmed_mean_kernel, trimmed_mean_of_sorted,
+    cwmed_kernel, median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
 )
-from repro_torch.kernels.fused_agg import METHODS
+from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
 from repro_torch.kernels.quantize import (
-    dequantize_kernel, dequantize_ref, quantize_stack_kernel,
+    dequantize_kernel, dequantize_ref, quantize_kernel, quantize_stack_kernel,
 )
 
 F32_KS = (1, 2, 3, 8, 17, 90)
+# the fused kernel's K: every side of its network widths, its shared-memory
+# column sort (K > 32) and chip_smoke.py's edge list
+FUSED_KS = (1, 3, 8, 16, 17, 32, 33, 64, 65, 90)
 # every side of each sort-network width (8, 16, 32) and the shared-memory sort
 SORT_KS = (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 90)
 SORT_DS = (1, 255, 257, 6145, 428350)
@@ -178,7 +182,6 @@ def test_sort_network_on_every_zero_one_column(cuda, K):
     principle a comparator network that puts the right value at a sorted
     position for every 0/1 input does so for every input, so the median's
     agreement here is a proof for its positions at this K."""
-    assert sort_width(K) != SHARED_MEMORY
     c = torch.arange(2 ** K)
     x = ((c[None, :] >> torch.arange(K)[:, None]) & 1).to(torch.float32)
     srt = torch.sort(x, dim=0).values
@@ -186,6 +189,64 @@ def test_sort_network_on_every_zero_one_column(cuda, K):
     for trim in range(1, (K - 1) // 2 + 1):
         got = trimmed_mean_kernel(x.to(cuda), trim=trim).cpu()
         assert torch.equal(_bits(got), _bits(trimmed_mean_of_sorted(srt, trim))), trim
+
+
+@pytest.mark.parametrize("K", FUSED_KS)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("quantize_out", (False, True), ids=("f32", "qout"))
+def test_fused_agg_bit_exact_at_every_K(cuda, K, method, quantize_out):
+    """Given the same normalized weights the kernel is its plain version bit
+    for bit: fedavg is one FMA chain in both, the sorts' order statistics
+    carry no -0.0 (an int8 zero dequantizes to +0.0)."""
+    q, s, _ = ops.quantize_stack(_stack(K, 6145, 5 * K))
+    w = normalize_weights(K, torch.rand((K,), generator=torch.Generator().manual_seed(K)))
+    trim = (K - 1) // 2
+    kw = dict(method=method, trim=trim, quantize_out=quantize_out)
+    got = fused_agg_kernel(q.to(cuda), s.to(cuda), w.to(cuda), **kw)
+    want = fused_agg_ref(q, s, w, method, trim, quantize_out)
+    for g, h in zip(got if quantize_out else (got,), want if quantize_out else (want,)):
+        assert torch.equal(g.cpu(), h)
+        if g.dtype == torch.float32:
+            assert torch.equal(_bits(g), _bits(h))
+
+
+@pytest.mark.parametrize("K", range(1, 21))
+def test_fused_sort_on_every_zero_one_column(cuda, K):
+    """The 0-1 proof of the fused kernel's network (see the f32 test
+    above): int8 columns holding the bits of their index, scales 1.0."""
+    n = 2 ** K
+    D = -(-n // 2048) * 2048
+    c = torch.arange(D) % n
+    q = ((c[None, :] >> torch.arange(K)[:, None]) & 1).to(torch.int8)
+    s = torch.ones((K, D // 2048))
+    w = torch.full((K,), 1.0 / K)
+    srt = torch.sort(q.to(torch.float32), dim=0).values
+    got = fused_agg_kernel(q.to(cuda), s.to(cuda), w.to(cuda), method="cwmed")
+    assert torch.equal(got.cpu(), median_of_sorted(srt))
+    for trim in range(1, (K - 1) // 2 + 1):
+        got = fused_agg_kernel(q.to(cuda), s.to(cuda), w.to(cuda),
+                               method="trimmed_mean", trim=trim)
+        assert torch.equal(_bits(got), _bits(trimmed_mean_of_sorted(srt, trim))), trim
+
+
+@pytest.mark.parametrize("K", (1, 3, 8, 17))
+@pytest.mark.parametrize("D", (1, 2047, 2049, 6145))
+def test_quantize_bit_exact_on_ragged_zero_and_signed_zero(cuda, K, D):
+    """Ragged D (padded once by ops), an all-zero tile of +0.0 and -0.0 in
+    every row (scale 1.0, q 0), signed zeros among normals, and exact half
+    steps; the single-vector launch on every row."""
+    x = _stack(K, D, 17 * K + D)
+    if D > 2048:
+        x[:, :2048] = 0.0
+        x[K // 2:, :2048:3] = -0.0
+    x[:, -1] = -0.0
+    q, s, d = ops.quantize_stack(x.to(cuda))
+    rq, rs, rd = ops.quantize_stack(x)
+    assert d == rd
+    assert torch.equal(q.cpu(), rq) and torch.equal(_bits(s), _bits(rs))
+    for k in range(K):
+        q1, s1, _ = ops.quantize(x[k].to(cuda))
+        assert torch.equal(q1.cpu(), rq[k]) and torch.equal(_bits(s1), _bits(rs[k]))
 
 
 @pytest.mark.parametrize("n", (2048, 4096, 6144, 430080))
@@ -211,6 +272,15 @@ def test_kernel_counts_its_launches(cuda):
     dequantize_kernel(torch.zeros(2048, dtype=torch.int8, device=cuda),
                       torch.ones(1, device=cuda))
     assert dequantize_kernel.launches == before + 1
+    before = quantize_kernel.launches
+    quantize_kernel(torch.zeros(2048, device=cuda))
+    assert quantize_kernel.launches == before + 1
+    for K in (8, 33):                    # a register network, shared memory
+        before = fused_agg_kernel.launches
+        fused_agg_kernel(torch.zeros((K, 2048), dtype=torch.int8, device=cuda),
+                         torch.ones((K, 1), device=cuda),
+                         torch.ones(K, device=cuda) / K, method="cwmed")
+        assert fused_agg_kernel.launches == before + 1
     for K in (8, 33):                    # a register network, shared memory
         x = torch.zeros((K, 300), device=cuda)
         before = cwmed_kernel.launches

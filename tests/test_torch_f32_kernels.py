@@ -42,7 +42,6 @@ from repro_torch.convert import from_numpy_tree, to_numpy_tree
 from repro_torch.data import make_femnist_like
 from repro_torch.fl.adapter import femnist_adapter
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.cwmed import NETWORK_WIDTHS, SHARED_MEMORY, sort_width
 
 torch.set_num_threads(2)
 
@@ -123,18 +122,6 @@ def test_signed_zero_ties_agree_by_value(K, method):
     got = tops.aggregate(torch.from_numpy(x), method, trim=trim).numpy()
     np.testing.assert_array_equal(got, want)          # -0.0 == +0.0
     np.testing.assert_array_equal(_bits(got[1024:]), _bits(want[1024:]))
-
-
-def test_sort_width_picks_the_smallest_network_that_holds_K():
-    for K in range(1, 91):
-        w = sort_width(K)
-        if K <= 32:
-            assert w in NETWORK_WIDTHS and K <= w
-            assert all(K > v for v in NETWORK_WIDTHS if v < w)
-        else:
-            assert w == SHARED_MEMORY
-    assert [sort_width(K) for K in (8, 9, 16, 17, 32, 33)] == [
-        8, 16, 16, 32, 32, SHARED_MEMORY]
 
 
 def test_wrappers_refuse_bad_input():

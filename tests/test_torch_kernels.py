@@ -20,7 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.fused_agg import fused_agg_kernel
+from repro_torch.kernels.fused_agg import fused_agg_kernel, fused_agg_ref
 from repro_torch.kernels.quantize import dequantize_kernel, quantize_stack_kernel
 
 torch.set_num_threads(2)
@@ -125,10 +125,15 @@ def test_wrappers_refuse_bad_input():
     s = torch.ones((3, 1))
     with pytest.raises(ValueError):
         fused_agg_kernel(q, s, torch.ones(3) / 3, method="trimmed_mean", trim=2)
-    with pytest.raises(ValueError):
-        fused_agg_kernel(torch.zeros((65, 2048), dtype=torch.int8),
-                         torch.ones((65, 1)), torch.ones(65) / 65,
-                         method="cwmed")
+    # no K cap on the sort methods (the reference has none): K = 65 cwmed
+    # is a median, not an error
+    q65 = torch.from_numpy(np.random.default_rng(65).integers(
+        -127, 128, (65, 2048), dtype=np.int8))
+    s65, w65 = torch.full((65, 1), 0.5), torch.ones(65) / 65
+    got = fused_agg_kernel(q65, s65, w65, method="cwmed")
+    assert torch.equal(got, fused_agg_ref(q65, s65, w65, method="cwmed"))
+    np.testing.assert_array_equal(
+        got.numpy(), np.median(q65.numpy().astype(np.float32) * 0.5, axis=0))
 
 
 def test_non_cpu_tensor_launches_or_raises_never_falls_back():
