@@ -30,8 +30,9 @@ Phases, one JSON line each:
            trimmed_mean in shared memory)
   kernel_floor  dequantize, quantize and fused_agg on one tile: launch,
            ramp-up and one round trip to memory
-  kernel_k90  the shared-memory sorts at K = 90 (f32 and fused int8), which
-           no path runs
+  kernel_k90  the shared-memory sorts at K = 90 (f32 and fused int8): the
+           f32 one no path runs, the fused one runs on tiered_int8_cwmed's
+           slices at their own K (``kernel_path``)
   paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
            900 writers, P = 54, Q = 36, k = 8) on one dataset, each path
            with the launch counts set to 0 just before it and read just
@@ -53,6 +54,21 @@ Phases, one JSON line each:
                     use_kernels=True and an f32 chain: verify(), the
                     committed model equal to the old model plus the plain
                     reduction of the round's update blocks
+           tiered_int8, tiered_int8_cwmed, tiered_f32_trimmed_mean
+                    2 rounds each of build_runtime(..., tiers=S): an int8
+                    chain with the committee_int8 inner validator (S = 2);
+                    an int8 cwmed chain at active_proportion 0.2 (S = 2,
+                    slices above 32 rows: the fused kernel's column sort
+                    with quantize_out); an f32 trimmed-mean chain (S = 3).
+                    verify() and the tiered height, the committee blocks,
+                    every slice's sub-aggregate (int8: its blob) bit for
+                    bit against the plain version over the slice's rows,
+                    the committed model against the old one plus the plain
+                    reduction of the S stored blocks, hier_logs' peak below
+                    the flat stack, exact launch counts (S quantize_out
+                    launches a round and one final aggregation on int8);
+                    then the tier-1 kernel timed on the largest slice's
+                    rows (``kernel_path``)
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -705,12 +721,12 @@ def counted(path: str, drive, need: dict):
     return counts, rt
 
 
-def build(ds, cfg: dict, stages=None):
+def build(ds, cfg: dict, stages=None, tiers=None):
     from repro_torch.api import build_runtime
     from repro_torch.fl.adapter import femnist_adapter
 
     return build_runtime(femnist_adapter(width=32), ds, {**cfg, "seed": 0},
-                         stages=stages, device="cuda")
+                         stages=stages, tiers=tiers, device="cuda")
 
 
 def path_int8(ds):
@@ -899,6 +915,268 @@ def path_int8_sort(ds, method: str):
     return counts, rt
 
 
+# the tiered paths: path -> (config, tiers S, inner validator)
+TIERED_PATHS = {
+    "tiered_int8": ({"quantize_chain": True, "use_kernels": True}, 2,
+                    "committee_int8"),
+    "tiered_int8_cwmed": ({"quantize_chain": True, "use_kernels": True,
+                           "aggregation": "cwmed", "active_proportion": 0.2},
+                          2, "committee"),
+    "tiered_f32_trimmed_mean": ({"use_kernels": True,
+                                 "aggregation": "trimmed_mean"}, 3,
+                                "committee"),
+}
+
+
+def plain_quantized_rows(stack):
+    """(K, D) f32 -> the chain codec's (q, scales) of every row on the CPU,
+    by the plain version (padded to the 2048-lane tile first)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.quantize import quantize_stack_ref
+
+    return quantize_stack_ref(F.pad(stack.cpu(), (0, (-stack.shape[1]) % 2048)))
+
+
+def _slice_ids(records):
+    """The rows a slice aggregates, by the rule of the tiered round: its
+    accepted updates best first (or its best one when none qualified)."""
+    accepted = sorted((r for r in records if r[2]), key=lambda r: -r[1])
+    chosen = accepted or sorted(records, key=lambda r: -r[1])[:1]
+    return [r[0] for r in chosen], [r[1] for r in chosen]
+
+
+def path_tiered(ds, path: str):
+    """A tiered (two-tier) round through build_runtime(..., tiers=S): S
+    slices, each scored by its own sub-committee and reduced to one
+    sub-aggregate, then a tier-2 committee round over the S of them.  A
+    spy around the inner validator keeps each slice's updates and
+    consensus records, and a spy around the ``hier`` packer keeps the S
+    sub-aggregates (and blobs) before they are packed.  Checked:
+    verify() and the tiered height; the committee block's members and S
+    uploaders; every slice's sub-aggregate (int8: its stored blob) equal,
+    bit for bit, to the plain version over the slice's own rows, weights
+    and clamped trim; every update block one of those; the committed
+    model equal to the old one plus the plain reduction of the S stored
+    blocks (exact on f32, within one quantization step on int8);
+    hier_logs' peak below the flat stack's bytes; and the launches: on
+    int8 chains exactly S fused_agg launches a round before the packer
+    (the quantize_out form) and one after it."""
+    import torch
+
+    from repro_torch.core.aggregation import (
+        apply_update, flatten_updates, normalize_weights,
+    )
+    from repro_torch.fl.pipeline import resolve
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.fused_agg import fused_agg_ref, reduce_rows
+    from repro_torch.tree import ravel_pytree
+
+    cfg, S, inner_name = TIERED_PATHS[path]
+    quantized = cfg.get("quantize_chain", False)
+    method = cfg.get("aggregation", "fedavg")
+    rounds = 2
+    inner = resolve("validator", inner_name)
+    packer = resolve("packer", "hier")
+    slices, tier1, committees = [], [], []
+
+    class SpyInner:
+        def prepare(self, ctx):
+            inner.prepare(ctx)
+
+        def __call__(self, ctx):
+            inner(ctx)
+            slices.append({
+                "round": ctx.round, "updates": dict(ctx.updates),
+                "records": [(r.uploader, r.median_score, r.accepted)
+                            for r in ctx.consensus.records]})
+
+    def spy_packer(ctx):
+        st = ctx.hier
+        tier1.append({"round": ctx.round, "fused_agg": launch_counts()["fused_agg"],
+                      "subs": list(st.sub_aggregates), "blobs": list(st.sub_blobs),
+                      "contributors": [list(c) for c in st.sub_contributors],
+                      "uploaders": list(st.sub_uploaders)})
+        packer(ctx)
+
+    def replay_slices(rt):
+        ks, worst = [], 0.0
+        for t, tr in enumerate(tier1):
+            mine = [s for s in slices if s["round"] == t]
+            check(len(mine) == S == len(tr["subs"]),
+                  f"{path}: round {t} ran {len(mine)} slices, packed "
+                  f"{len(tr['subs'])}, want {S}")
+            for i, sl in enumerate(mine):
+                ids, medians = _slice_ids(sl["records"])
+                check(ids == tr["contributors"][i],
+                      f"{path}: round {t} slice {i} aggregated "
+                      f"{tr['contributors'][i]}, want {ids}")
+                K = len(ids)
+                ks.append(K)
+                trim = min(rt.cfg.trim, (K - 1) // 2)
+                w = normalize_weights(K, medians if rt.cfg.weight_by_score
+                                      else None, "cuda").cpu()
+                stack, _ = flatten_updates([sl["updates"][u] for u in ids])
+                stack = stack.cpu()
+                if quantized:
+                    q, s = plain_quantized_rows(stack)
+                    pq, ps = fused_agg_ref(q, s, w, method, trim, quantize_out=True)
+                    blob = tr["blobs"][i]
+                    exact = (torch.equal(blob["q"].cpu(), pq)
+                             and same_bits(blob["scales"], ps))
+                    err = max_err((blob["q"], blob["scales"]), (pq, ps))
+                else:
+                    plain = reduce_rows(stack, w, method, trim)
+                    got = ravel_pytree(tr["subs"][i])[0]
+                    exact = same_bits(got, plain)
+                    err = max_err(got, plain)
+                worst = max(worst, err)
+                check(exact, f"{path}: round {t} slice {i} (K={K}, trim "
+                             f"{trim}) differs from the plain version by {err}")
+        return ks, worst
+
+    def readback_tiered(rt, t):
+        """The chain's update blocks of round t are slice blobs, and the
+        committed model is the old one plus their plain reduction."""
+        tr = tier1[t]
+        blocks = rt.chain.updates_at_round(t)
+        for b in blocks:
+            i = tr["uploaders"].index(b.uploader)
+            stored = rt.chain.raw_payload(b)
+            check((torch.equal(stored["q"], tr["blobs"][i]["q"])
+                   and torch.equal(stored["scales"], tr["blobs"][i]["scales"]))
+                  if quantized else
+                  torch.equal(ravel_pytree(stored)[0],
+                              ravel_pytree(tr["subs"][i])[0]),
+                  f"{path}: round {t} block {b.index} is not slice {i}'s")
+        scores = [b.score for b in blocks]
+        w = normalize_weights(S, scores if rt.cfg.weight_by_score else None,
+                              "cuda").cpu()
+        old = rt.chain.model_at_round(t)
+        flat_old, unravel = ravel_pytree(old)
+        if quantized:
+            blobs = [rt.chain.raw_payload(b) for b in blocks]
+            q = torch.stack([b["q"] for b in blobs]).cpu()
+            s = torch.stack([b["scales"] for b in blobs]).cpu()
+            d = blobs[0]["d"]
+            agg = fused_agg_ref(q, s, w, method, rt.cfg.trim)[:d]
+            # one quantization step a lane: the largest scale of its tile
+            # over the blocks that hold a nonzero q there
+            live = q.view(S, s.shape[1], -1).ne(0).any(dim=2)
+            step = torch.where(live, s, torch.zeros_like(s)).amax(dim=0)
+            step = step.repeat_interleave(q.shape[1] // s.shape[1])[:d]
+        else:
+            stack, _ = flatten_updates(rt.chain.update_payloads_at_round(t))
+            agg = reduce_rows(stack.cpu(), w, method, rt.cfg.trim)
+            step = torch.zeros_like(agg)
+        replay = ravel_pytree(apply_update(old, unravel(agg.to(flat_old.device))))[0]
+        new = ravel_pytree(rt.chain.model_at_round(t + 1))[0]
+        check(bool(torch.isfinite(new).all()), f"{path}: committed params finite")
+        diff = (replay - new).abs().cpu()
+        exact = same_bits(replay, new)
+        emit(phase="replay", path=path, round=t, rows=len(blocks), exact=exact,
+             max_abs_err=float(diff.max()), quantization_step=float(step.max()))
+        check(exact if not quantized else bool((diff <= step).all()),
+              f"{path}: committed model off the plain replay by "
+              f"{float(diff.max())}")
+
+    def drive():
+        t0 = time.perf_counter()
+        rt = build(ds, cfg, stages={"validator": SpyInner(),
+                                    "packer": spy_packer}, tiers=S)
+        emit(phase="round_setup", path=path, seconds=time.perf_counter() - t0,
+             tiers=S, q_committee=rt.q_committee, dim=rt._dim)
+        for _ in range(rounds):
+            committees.append([i for i in rt.committee if i in rt.manager.nodes])
+            run_rounds(path, rt, 1)
+        verified = rt.chain.verify()
+        emit(phase="verify", path=path, ok=verified, height=rt.chain.height)
+        check(verified, f"{path}: chain.verify()")
+        check(rt.chain.height == 1 + rounds * (S + 2), f"{path}: chain height")
+        for t in range(rounds):
+            rec = rt.chain.committee_at_round(t)
+            check(rec["members"].tolist() == committees[t],
+                  f"{path}: round {t} committee block members")
+            check(len(rec["uploaders"]) == S, f"{path}: round {t} uploaders")
+        ks, worst = replay_slices(rt)
+        emit(phase="slices", path=path, k=ks, max_abs_err=worst,
+             slice_sizes=[len(s["records"]) for s in slices])
+        for t in range(rounds):
+            readback_tiered(rt, t)
+        for log in rt.hier_logs:
+            emit(phase="hier_log", path=path, **log)
+            check(log["peak_stack_bytes"] < log["flat_stack_bytes"],
+                  f"{path}: peak stack bytes {log['peak_stack_bytes']} not "
+                  f"below flat {log['flat_stack_bytes']}")
+        if method == "cwmed" and quantized:
+            check(max(ks) > 32, f"{path}: no slice above 32 rows ({ks}); the "
+                                f"column sort did not run")
+        return rt
+
+    n = rounds * S
+    need = {"trimmed_mean": rounds * (S + 1)} if not quantized else {
+        "quantize_stack": n, "fused_agg": rounds * (S + 1), "dequantize": n}
+    if inner_name == "committee_int8":
+        need["fused_candidates"] = n
+    counts, rt = counted(path, drive, need)
+    for name, want in need.items():
+        check(counts[name] == want, f"{path}: {name} launched {counts[name]} "
+                                    f"times, want exactly {want}")
+    if quantized:
+        at_pack = [tr["fused_agg"] for tr in tier1]
+        check(at_pack == [t * (S + 1) + S for t in range(rounds)],
+              f"{path}: fused_agg launches at each packer {at_pack}: want S "
+              f"quantize_out launches a round and one final aggregation")
+    time_slice_kernel(path, quantized, method, rt.cfg.trim, slices, tier1)
+    return counts, rt
+
+
+def time_slice_kernel(path, quantized, method, trim, slices, tier1):
+    """Time the tier-1 kernel of a tiered path on the rows of its largest
+    slice (after the counted run: these launches count nowhere), beside
+    its bound; ``launches`` is how many slices of the path ran it in the
+    same form (for the fused sorts: the K > 32 column form or a network)."""
+    from repro_torch.core.aggregation import flatten_updates, normalize_weights
+    from repro_torch.kernels.cwmed import trimmed_mean_kernel
+    from repro_torch.kernels.fused_agg import fused_agg_kernel
+
+    contributors = [c for tr in tier1 for c in tr["contributors"]]
+    ks = [len(c) for c in contributors]
+    i = max(range(len(ks)), key=ks.__getitem__)
+    K = ks[i]
+    stack, _ = flatten_updates([slices[i]["updates"][u] for u in contributors[i]])
+    trim_k = min(trim, (K - 1) // 2)
+    f32, i8 = 4, 1
+    launches = len(ks)
+    if quantized:
+        q, s = (t.cuda() for t in plain_quantized_rows(stack))
+        w = normalize_weights(K, None, "cuda")
+        Dpad, nblk = q.shape[1], s.shape[1]
+        column = method != "fedavg" and K > 32
+        form = f"{method} quantize_out" + (" column sort" if column else "")
+        if method != "fedavg":      # slices that ran the same sort design
+            launches = sum((k > 32) == column for k in ks)
+        fn = functools.partial(fused_agg_kernel, q, s, w, method=method,
+                               trim=trim_k, quantize_out=True)
+        sort_ops = {"fedavg": 4 * K, "cwmed": 2 * K + K * (K - 1) // 2 + 2,
+                    "trimmed_mean": 2 * K + K * (K - 1) // 2 + K - 1}[method]
+        b_ms, b_by = bound_ms(K * Dpad * i8 + K * nblk * f32 + K * f32
+                              + Dpad * i8 + nblk * f32, (sort_ops + 6) * Dpad)
+        name, shape = "fused_agg", [K, Dpad]
+    else:
+        x = stack.contiguous()
+        D = x.shape[1]
+        fn = functools.partial(trimmed_mean_kernel, x, trim=trim_k)
+        form = f"trimmed_mean trim {trim_k}"
+        b_ms, b_by = bound_ms(K * D * f32 + D * f32,
+                              K * (K - 1) // 2 * D + (K - 1) * D)
+        name, shape = "trimmed_mean", [K, D]
+    ms = time_ms(fn, iters=5, reps=4)
+    emit(phase="kernel_path", path=path, name=name, form=form, shape=shape,
+         slice_ks=ks, launches=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
+         launches_x_gap_ms=launches * (ms - b_ms))
+
+
 def path_baselines(ds) -> None:
     """The committee-free baselines at full width through
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
@@ -1002,6 +1280,8 @@ def main(argv) -> int:
         paths[f"int8_{m}"] = path_int8_sort(ds, m)
     for m in ("fedavg", "cwmed", "trimmed_mean"):
         paths[f"f32_{m}"] = path_f32(ds, m)
+    for name in TIERED_PATHS:
+        paths[name] = path_tiered(ds, name)
     path_baselines(ds)
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c, _ in paths.values())

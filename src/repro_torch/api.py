@@ -67,8 +67,10 @@ def build_runtime(
     ``stage_timings``.
 
     ``initial_params`` warm-starts the model (a dict of tensors or numpy
-    arrays with the reference's keys and layouts).  ``mesh``, ``tiers > 1``
-    and ``schedule="async"`` are the reference's sharded, hierarchical and
+    arrays with the reference's keys and layouts).  ``tiers=S > 1`` runs
+    the two-tier round of ``repro_torch.fl.hier`` (S sub-communities, then
+    a second-level committee round); ``tiers=1`` is the flat round.
+    ``mesh`` and ``schedule="async"`` are the reference's sharded and
     asynchronous engines; they raise ``NotImplementedError`` until
     ported."""
     cfg = build_config(cfg, baseline=baseline)

@@ -1,5 +1,8 @@
 from repro_torch.fl.adapter import ModelAdapter, femnist_adapter
 from repro_torch.fl.baselines import FLConfig, FLTrainer, train_standalone
+# registers the tiered round's stages (sampler "tiered", validator and
+# packer "hier")
+from repro_torch.fl.hier import HierState, build_hier_pipeline
 from repro_torch.fl.pipeline import (
     REGISTRIES,
     RoundContext,
@@ -23,4 +26,6 @@ __all__ = [
     "REGISTRIES",
     "build_pipeline",
     "register",
+    "HierState",
+    "build_hier_pipeline",
 ]

@@ -1,6 +1,6 @@
 """Composable BFLC round pipeline (paper Fig. 1 as pluggable stages).
 
-Port of ``repro/fl/pipeline.py`` for the flat, single-device round:
+Port of ``repro/fl/pipeline.py`` for the single-device round:
 
 * ``RoundContext`` threads one round's state (params, cohort, score table,
   packed records, chain, host rng, per-stage timings) through the stages.
@@ -17,8 +17,10 @@ Registered here: the BFLC stages ``active``, ``local_sgd``,
 ``committee``, ``committee_int8``, ``top_k``, ``top_k_int8``, ``pytree``,
 ``fused_int8``, ``by_candidates``, ``proportional``, and the baselines'
 no-op stages ``uniform``, ``accept_all``, ``all``, ``none`` (elector and
-rewarder).  The reference's sharded stages are listed in ``NOT_PORTED``
-and raise ``NotImplementedError`` naming their ROADMAP item.
+rewarder).  ``repro_torch.fl.hier`` registers the two-tier round's
+``tiered`` sampler and ``hier`` validator and packer.  The reference's
+sharded stages are listed in ``NOT_PORTED`` and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -71,6 +73,9 @@ class RoundContext:
     int8_score_fn: Any = None              # fused int8 scorer
     collusion: Any = None                  # CollusionPolicy
     malicious: Optional[Set[int]] = None   # baseline ground truth (no manager)
+    # two-tier round state: a HierState, built per round by the runtime
+    # when cfg.tiers > 1 (see repro_torch.fl.hier)
+    hier: Any = None
     # uploader -> (q, scales, row, d): the int8 validator's per-row
     # chain-codec quantization, cached so the packer reuses the rows
     # instead of re-quantizing the packed stack

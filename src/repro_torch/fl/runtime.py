@@ -1,14 +1,17 @@
 """The BFLC round loop (paper Fig. 1): chain + committee consensus +
 election + incentive.
 
-Port of ``repro/fl/runtime.py`` for the flat single-device round.  Each
+Port of ``repro/fl/runtime.py`` for one device.  Each
 round (1) samples active nodes, (2) trains the trainers locally from the
 latest model block, (3) has the committee score every update on its own
 data (median over members) and packs the top-k qualified updates as update
 blocks, (4) aggregates them into the next model block, and (5) elects the
-next committee and pays rewards.  The host rng is numpy, seeded from
-``cfg.seed`` and drawn in the reference's order, so a seed gives the same
-cohorts, committees and poison in both packages.
+next committee and pays rewards.  With ``cfg.tiers = S > 1`` the round
+is the two-tier one of ``repro_torch.fl.hier``: S sub-communities run
+committee consensus on their own slices and a second-level committee round
+judges the S sub-aggregates before the chain commit.  The host rng is
+numpy, seeded from ``cfg.seed`` and drawn in the reference's order, so a
+seed gives the same cohorts, committees and poison in both packages.
 
 ``BFLCRuntime`` runs on ``device`` ("cuda" by default; it raises when CUDA
 is absent unless ``device="cpu"``).  Options this port does not have yet
@@ -35,13 +38,14 @@ from repro_torch.fl.client import (
     make_score_from_int8_fn,
     make_score_matrix_fn,
 )
+from repro_torch.fl.hier import HierState, build_hier_pipeline
 from repro_torch.fl.pipeline import (
     RoundContext,
     build_pipeline,
     default_stage_names,
     fill_committee,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -63,7 +67,10 @@ class BFLCConfig:
     # store update blocks as int8 blobs (§IV.D) and aggregate straight from
     # them with the fused int8 kernel
     quantize_chain: bool = False
-    # hierarchical rounds (S > 1): not ported yet
+    # hierarchical rounds (repro_torch.fl.hier): tiers = S > 1 splits every
+    # round into S sub-communities, each running committee consensus and
+    # aggregation on its own slice, then a second-level committee round
+    # over the S sub-aggregates; tiers = 1 is the flat pipeline
     tiers: int = 1
     malicious_fraction: float = 0.0
     attack: str = "gaussian"
@@ -111,20 +118,18 @@ def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
     check_schedule_and_mesh(mesh, schedule)
     if cfg.tiers < 1:
         raise ValueError(f"tiers={cfg.tiers} must be >= 1")
-    if cfg.tiers > 1:
-        raise NotImplementedError(
-            "tiers > 1 (hierarchical rounds) is not ported yet: ROADMAP.md "
-            "Queue 1 item 9"
-        )
     if cfg.quantize_chain and not cfg.use_kernels:
         # the quantized chain path IS the fused kernel engine
         raise ValueError(
             "quantize_chain=True requires use_kernels=True "
             "(aggregation runs the fused int8 kernel)"
         )
-    if cfg.aggregation == "trimmed_mean" and not 0 <= 2 * cfg.trim < cfg.k_updates:
+    # a tiered round's final aggregation runs over S = tiers blocks, a flat
+    # round's over k_updates: check the trim against the rows it will see
+    agg_rows = cfg.tiers if cfg.tiers > 1 else cfg.k_updates
+    if cfg.aggregation == "trimmed_mean" and not 0 <= 2 * cfg.trim < agg_rows:
         raise ValueError(
-            f"trim={cfg.trim} invalid for {cfg.k_updates} aggregated rows "
+            f"trim={cfg.trim} invalid for {agg_rows} aggregated rows "
             f"(need 0 <= 2*trim < rows)"
         )
 
@@ -173,8 +178,14 @@ class BFLCRuntime:
             from repro_torch.kernels.ops import Int8UpdateCodec
 
             self._codec = Int8UpdateCodec(params)
-        self.chain = Chain(cfg.k_updates, update_codec=self._codec)
+        # tiered rounds store S sub-aggregate update blocks and one tier-2
+        # committee block per round
+        tiered = cfg.tiers > 1
+        self.chain = Chain(cfg.tiers if tiered else cfg.k_updates,
+                           update_codec=self._codec, tier2_block=tiered)
         self.chain.append_model(params, 0)
+        # flat update dimension D, for the tiered round's byte accounting
+        self._dim = sum(leaf.numel() for leaf in tree_leaves(params))
 
         # batched helpers
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
@@ -205,9 +216,16 @@ class BFLCRuntime:
         )
         self.committee = fill_committee(self.manager, self.committee,
                                         self.q_committee)
-        self.pipeline = build_pipeline(default_stage_names(cfg), stages)
+        self._hier_inner = None
+        if tiered:
+            self.pipeline, self._hier_inner = build_hier_pipeline(cfg, stages)
+        else:
+            self.pipeline = build_pipeline(default_stage_names(cfg), stages)
         self.logs: List[RoundLog] = []
         self.stage_timings: List[Dict[str, float]] = []
+        # per-round tiered memory accounting (tiers > 1): tiers,
+        # peak_stack_bytes, flat_stack_bytes, max_slice_rows, t1_validations
+        self.hier_logs: List[Dict[str, int]] = []
 
     # ------------------------------------------------------------------
     def global_params(self):
@@ -240,8 +258,20 @@ class BFLCRuntime:
             int8_score_fn=self._int8_score,
             collusion=self._collusion,
         )
+        if self.cfg.tiers > 1:
+            ctx.hier = HierState(tiers=self.cfg.tiers,
+                                 inner_validator=self._hier_inner,
+                                 dim=self._dim)
         self.pipeline.run(ctx)
         self.committee = ctx.committee
+        if ctx.hier is not None:
+            self.hier_logs.append({
+                "tiers": ctx.hier.tiers,
+                "peak_stack_bytes": ctx.hier.peak_stack_bytes,
+                "flat_stack_bytes": ctx.hier.flat_stack_bytes,
+                "max_slice_rows": ctx.hier.max_slice_rows,
+                "t1_validations": ctx.hier.t1_validations,
+            })
 
         mal_nodes = {i for i, nd in self.manager.nodes.items() if nd.is_malicious}
         log = RoundLog(

@@ -34,13 +34,20 @@ def test_default_device_is_cuda_and_raises_without_it(tiny_ds):
 
 @pytest.mark.parametrize("kwargs, cfg, match", [
     (dict(mesh=object()), {}, "Queue 1 item 11"),
-    (dict(tiers=2), {}, "Queue 1 item 9"),
+    (dict(tiers=2, mesh=object()), {}, "Queue 1 item 11"),
     (dict(schedule="async"), {}, "Queue 1 item 10"),
 ])
 def test_unported_options_raise_not_implemented(tiny_ds, kwargs, cfg, match):
     with pytest.raises(NotImplementedError, match=match):
         build_runtime(femnist_adapter(8), tiny_ds, {**SMALL, **cfg},
                       device="cpu", **kwargs)
+
+
+def test_tiers_build_the_tiered_round(tiny_ds):
+    rt = build_runtime(femnist_adapter(8), tiny_ds, SMALL, tiers=2,
+                       device="cpu")
+    assert rt.cfg.tiers == 2 and rt.chain.tier2 and rt.chain.k == 2
+    assert rt.hier_logs == []
 
 
 def test_quantize_chain_requires_use_kernels(tiny_ds):

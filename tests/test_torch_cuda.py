@@ -312,3 +312,58 @@ def test_round_on_the_card_matches_the_cpu_port(cuda):
         for kk, v in leaves.items():
             torch.testing.assert_close(gpu.global_params()[k][kk].cpu(), v,
                                        rtol=0, atol=1e-5)
+
+
+def test_tiered_round_on_the_card_stores_the_plain_slice_blobs(cuda):
+    """One tiers=2 int8 cwmed round over 120 virtual clients, everyone
+    active: round committee 30, 2 slices of 45 (11-member sub-committees,
+    34 trainers), so a slice that accepts more than 32 updates runs the
+    fused kernel's K > 32 column form with quantize_out.  Every slice's
+    blob equals, bit for bit, fused_agg_ref(..., quantize_out=True) over
+    the slice's own rows."""
+    from repro_torch.api import build_runtime
+    from repro_torch.core.aggregation import flatten_updates
+    from repro_torch.data import VirtualFederatedDataset, make_femnist_like
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.fl.pipeline import resolve
+    from repro_torch.kernels.quantize import quantize_stack_ref
+    from torch.nn import functional as F
+
+    ds = VirtualFederatedDataset(make_femnist_like(
+        num_clients=24, mean_samples=40, test_size=200, seed=3), 120)
+    inner, packer = resolve("validator", "committee"), resolve("packer", "hier")
+    rows, packed = [], []
+
+    class Spy:
+        def prepare(self, ctx):
+            inner.prepare(ctx)
+
+        def __call__(self, ctx):
+            inner(ctx)
+            rows.append(dict(ctx.updates))
+
+    def spy_packer(ctx):
+        packed.append((list(ctx.hier.sub_blobs),
+                       [list(c) for c in ctx.hier.sub_contributors]))
+        packer(ctx)
+
+    cfg = dict(active_proportion=1.0, committee_fraction=0.25, local_steps=2,
+               local_batch=8, val_batch=16, quantize_chain=True,
+               use_kernels=True, aggregation="cwmed")
+    rt = build_runtime(femnist_adapter(8), ds, cfg, tiers=2, device="cuda",
+                       initial_params=femnist_adapter(8).init(
+                           torch.Generator().manual_seed(0)),
+                       stages={"validator": Spy(), "packer": spy_packer})
+    before = fused_agg_kernel.launches
+    rt.run_round()
+    assert fused_agg_kernel.launches == before + 3     # 2 slices + tier 2
+    assert rt.chain.verify()
+    (blobs, contributors), = packed
+    assert max(len(ids) for ids in contributors) > 32
+    for updates, ids, blob in zip(rows, contributors, blobs):
+        stack, _ = flatten_updates([updates[u] for u in ids])
+        q, s = quantize_stack_ref(F.pad(stack.cpu(), (0, (-stack.shape[1]) % 2048)))
+        w = torch.full((len(ids),), 1.0 / len(ids))
+        pq, ps = fused_agg_ref(q, s, w, "cwmed", 1, quantize_out=True)
+        assert torch.equal(blob["q"].cpu(), pq)
+        assert torch.equal(_bits(blob["scales"].cpu()), _bits(ps))
