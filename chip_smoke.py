@@ -2,7 +2,7 @@
 """Runs the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
-    python3 chip_smoke.py --profile  # also profile one more round
+    python3 chip_smoke.py --profile  # also profile one more round a runtime
 
 Phases, one JSON line each:
   card     the GPU's name and power limit (nvidia-smi) and the TF32 switches
@@ -69,6 +69,19 @@ Phases, one JSON line each:
                     launches a round and one final aggregation on int8);
                     then the tier-1 kernel timed on the largest slice's
                     rows (``kernel_path``)
+           async_int8, async_tiered_int8
+                    2 rounds each of build_runtime(..., schedule="async") on
+                    the int8 and the tiered_int8 configs, in turns with a
+                    sequential twin of the same seed and initial params:
+                    RoundLogs, committees and hier_logs equal, both chains
+                    verify() and are equal block for block with every
+                    payload leaf bit for bit, the final params bit for bit,
+                    launch counts equal to the twin's (and exact), no
+                    implicit host-device sync in the async runtime's cohort
+                    stages (torch.cuda.set_sync_debug_mode), and on the
+                    tiered path train_dispatch[1] before validate_finalize[0]
+                    (the ``order`` line); ``round_pair`` lines put both
+                    schedules' round times side by side
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -721,12 +734,12 @@ def counted(path: str, drive, need: dict):
     return counts, rt
 
 
-def build(ds, cfg: dict, stages=None, tiers=None):
+def build(ds, cfg: dict, stages=None, tiers=None, **kw):
     from repro_torch.api import build_runtime
     from repro_torch.fl.adapter import femnist_adapter
 
     return build_runtime(femnist_adapter(width=32), ds, {**cfg, "seed": 0},
-                         stages=stages, tiers=tiers, device="cuda")
+                         stages=stages, tiers=tiers, device="cuda", **kw)
 
 
 def path_int8(ds):
@@ -1177,6 +1190,199 @@ def time_slice_kernel(path, quantized, method, trim, slices, tier1):
          launches_x_gap_ms=launches * (ms - b_ms))
 
 
+# the async paths: path -> (config, tiers, inner / flat validator, launches
+# each schedule must make in ROUNDS_ASYNC rounds, exactly)
+ROUNDS_ASYNC = 2
+ASYNC_PATHS = {
+    "async_int8": ({"quantize_chain": True, "use_kernels": True}, None, None,
+                   {"quantize_stack": ROUNDS_ASYNC, "fused_agg": ROUNDS_ASYNC}),
+    "async_tiered_int8": (TIERED_PATHS["tiered_int8"][0], 2, "committee_int8",
+                          {"quantize_stack": 2 * ROUNDS_ASYNC,
+                           "fused_candidates": 2 * ROUNDS_ASYNC,
+                           "fused_agg": 3 * ROUNDS_ASYNC,
+                           "dequantize": 2 * ROUNDS_ASYNC}),
+}
+
+
+class SyncWatch:
+    """Forwards a round stage (and its ``prepare`` / ``dispatch`` /
+    ``finalize`` halves), counting the implicit host-device syncs each call
+    makes under ``torch.cuda.set_sync_debug_mode("warn")``: blocking copies
+    and reads of device values.  An event's wait is explicit and not
+    counted."""
+
+    def __init__(self, stage, name: str, log: list):
+        self._stage, self._name, self._log = stage, name, log
+
+    def __getattr__(self, attr):
+        value = getattr(self._stage, attr)
+        if attr in ("prepare", "dispatch", "finalize"):
+            return functools.partial(self._watched, value, f"{self._name}.{attr}")
+        return value
+
+    def __call__(self, ctx):
+        self._watched(self._stage, self._name, ctx)
+
+    def _watched(self, fn, key, ctx):
+        import warnings
+
+        import torch
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(ctx)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        self._log.append((f"{key}[{ctx.cohort}]", len(sites), sites))
+
+
+def chains_equal(a, b) -> dict:
+    """Where two runtimes' chains differ: block headers and hashes, and the
+    payload leaves bit for bit (committee blocks by their arrays)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    diff = {"blocks": 0, "leaves": 0, "max_abs_err": 0.0}
+    if a.chain.height != b.chain.height:
+        diff["blocks"] = abs(a.chain.height - b.chain.height)
+    for ba, bb in zip(a.chain.blocks, b.chain.blocks):
+        head = ((ba.kind, ba.round, ba.uploader, ba.score, ba.hash)
+                == (bb.kind, bb.round, bb.uploader, bb.score, bb.hash))
+        diff["blocks"] += not head
+        la = tree_leaves(a.chain.raw_payload(ba))
+        lb = tree_leaves(b.chain.raw_payload(bb))
+        for x, y in zip(la, lb):
+            x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+            if (x.dtype, x.shape) != (y.dtype, y.shape):
+                diff["leaves"] += 1
+            elif x.numpy().tobytes() != y.numpy().tobytes():
+                diff["leaves"] += 1
+                diff["max_abs_err"] = max(diff["max_abs_err"], float(
+                    (x.double() - y.double()).abs().max()))
+    return diff
+
+
+def path_async(ds, path: str):
+    """The async schedule (``schedule="async"``) at full width against its
+    sequential twin: the same config, seed and initial params, round t of
+    each run in turns (the twin first in even rounds, the async runtime
+    first in odd ones), each round timed on the host clock to a device
+    synchronize.  Both twins' samplers, trainers and validators run under
+    SyncWatch, so the timed rounds carry the same instrumentation.  Checked:
+    RoundLogs, committees and hier_logs equal; both chains pass verify() and
+    are equal block for block, every payload leaf bit for bit; the final
+    params bit for bit; each schedule's launch counts equal to the twin's
+    and to the path's exact counts; no implicit sync in any cohort stage of
+    the async runtime; on the tiered path, train_dispatch[1] before
+    validate_finalize[0] in every round (the ``order`` line).  Returns both
+    runtimes, the twin first."""
+    import torch
+
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.fl.pipeline import RoundContext
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_leaves
+
+    cfg, tiers, validator, exact = ASYNC_PATHS[path]
+    stages = {"validator": validator} if validator else None
+    init = femnist_adapter(width=32).init(torch.Generator().manual_seed(0))
+    syncs, orders = {"sequential": [], "async": []}, []
+
+    def drive():
+        # the watch must see a known sync: a blocking copy to the host
+        probe = []
+        SyncWatch(lambda ctx: torch.ones(1, device="cuda").cpu(), "probe",
+                  probe)(RoundContext(cfg=None, rng=None, adapter=None,
+                                      data=None, params=None, round=0))
+        check(probe[0][1] == 1, f"SyncWatch counted {probe[0][1]} syncs in "
+                                f"one blocking copy")
+        rts, launches, committees = {}, {}, {}
+        for schedule in ("sequential", "async"):
+            rts[schedule] = build(ds, cfg, stages=stages, tiers=tiers,
+                                  schedule=schedule, initial_params=init)
+            launches[schedule] = dict.fromkeys(launch_counts(), 0)
+            committees[schedule] = []
+        # both twins run watched, so the timed rounds compare like with like
+        for schedule, rt in rts.items():
+            for kind in ("sampler", "local_trainer", "validator"):
+                stage = getattr(rt.pipeline, kind)
+                setattr(rt.pipeline, kind,
+                        SyncWatch(stage, kind, syncs[schedule]))
+        pipe = rts["async"].pipeline
+        for t in range(ROUNDS_ASYNC):
+            turn = ("sequential", "async") if t % 2 == 0 else ("async", "sequential")
+            seconds = {}
+            for schedule in turn:
+                rt = rts[schedule]
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                log = rt.run_round()
+                torch.cuda.synchronize()
+                seconds[schedule] = time.perf_counter() - t0
+                after = launch_counts()
+                for k in after:
+                    launches[schedule][k] += after[k] - before[k]
+                committees[schedule].append(list(rt.committee))
+                emit(phase="round", path=path, schedule=schedule, round=t,
+                     seconds=seconds[schedule], timings=rt.stage_timings[-1],
+                     log=log.__dict__)
+            orders.append(list(pipe.last_order))
+            emit(phase="round_pair", path=path, round=t, first=turn[0],
+                 sequential_s=seconds["sequential"], async_s=seconds["async"],
+                 async_over_sequential=seconds["async"] / seconds["sequential"])
+        seq, asy = rts["sequential"], rts["async"]
+        emit(phase="order", path=path, rounds=orders)
+        diff = chains_equal(seq, asy)
+        params_equal = all(same_bits(x, y) for x, y in zip(
+            tree_leaves(seq.global_params()), tree_leaves(asy.global_params())))
+        verified = (seq.chain.verify(), asy.chain.verify())
+        per_stage = {schedule: {} for schedule in syncs}
+        for schedule, log in syncs.items():
+            for key, n, _ in log:
+                stage = key.split("[")[0]
+                per_stage[schedule][stage] = per_stage[schedule].get(stage, 0) + n
+        emit(phase="async_twin", path=path, logs_equal=seq.logs == asy.logs,
+             committees_equal=committees["sequential"] == committees["async"],
+             hier_logs_equal=seq.hier_logs == asy.hier_logs, verify=verified,
+             chain_diff=diff, params_equal=params_equal,
+             launches={s: {k: v for k, v in launches[s].items() if v}
+                       for s in launches},
+             implicit_syncs=per_stage)
+        check(seq.logs == asy.logs, f"{path}: RoundLogs differ from the twin's")
+        check(committees["sequential"] == committees["async"],
+              f"{path}: committees differ from the twin's")
+        check(seq.hier_logs == asy.hier_logs, f"{path}: hier_logs differ")
+        check(all(verified), f"{path}: chain.verify()")
+        check(diff == {"blocks": 0, "leaves": 0, "max_abs_err": 0.0},
+              f"{path}: chains differ from the twin's: {diff}")
+        check(params_equal, f"{path}: final params differ from the twin's")
+        check(launches["sequential"] == launches["async"],
+              f"{path}: launches {launches['async']} differ from the twin's "
+              f"{launches['sequential']}")
+        for name, want in exact.items():
+            check(launches["async"][name] == want,
+                  f"{path}: {name} launched {launches['async'][name]} times, "
+                  f"want exactly {want}")
+        check(not any(n for _, n, _ in syncs["async"]),
+              f"{path}: implicit syncs in the async cohort stages: "
+              f"{[kn for kn in syncs['async'] if kn[1]]}")
+        if tiers:
+            for t, order in enumerate(orders):
+                check(order.index("train_dispatch[1]")
+                      < order.index("validate_finalize[0]"),
+                      f"{path}: round {t} finalized slice 0 before "
+                      f"dispatching slice 1's training: {order}")
+        return seq, asy
+
+    return counted(path, drive, {k: 2 * v for k, v in exact.items()})
+
+
 def path_baselines(ds) -> None:
     """The committee-free baselines at full width through
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
@@ -1233,29 +1439,113 @@ def path_baselines(ds) -> None:
     check(not any(counts.values()), "a baseline launched a kernel")
 
 
+def merged(intervals) -> list:
+    """The union of (start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+class StageRange:
+    """Forwards a sequential runtime's round stage (and its ``prepare``)
+    inside a profiler range ``stage.<timing key>`` that ends after a device
+    synchronize, so every kernel the stage launched runs inside its range.
+    The sequential engine synchronizes after every stage anyway."""
+
+    def __init__(self, stage, key: str):
+        self._stage, self._key = stage, key
+
+    def __getattr__(self, attr):
+        value = getattr(self._stage, attr)
+        if attr == "prepare":
+            return functools.partial(self._ranged, value)
+        return value
+
+    def __call__(self, ctx):
+        self._ranged(self._stage, ctx)
+
+    def _ranged(self, fn, ctx):
+        import torch
+
+        with torch.profiler.record_function(f"stage.{self._key}"):
+            fn(ctx)
+            torch.cuda.synchronize()
+
+
+# the cohort stages a sequential profile splits out, by timing key
+PROFILED_STAGES = {"sampler": "sample", "local_trainer": "train",
+                   "validator": "validate"}
+
+
 def phase_profile(path: str, rt) -> None:
     """One more round under torch.profiler (``--profile`` only): device
-    time by kernel, and the share of the round's wall time in which no
-    kernel ran.  Profiling adds host time, so that share is an upper
-    bound."""
+    time by kernel, and the device's busy time against the round's wall
+    time (the union of the kernels' intervals; ``kernel_sum_s`` sums
+    them).  Profiling adds host time, so ``idle_share`` (against the
+    profiled round) is an upper bound; ``busy_over_unprofiled`` holds the
+    same device time against the runtime's last round without the
+    profiler.  A sequential runtime's sample / train / validate stages
+    also report the device time inside their ranges against their
+    unprofiled seconds: near 1, the card paces the stage; well under 1,
+    the host does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    unprofiled = dict(rt.stage_timings[-1])
+    wrapped = {}
+    if rt.schedule == "sequential":
+        for kind, key in PROFILED_STAGES.items():
+            wrapped[kind] = getattr(rt.pipeline, kind)
+            setattr(rt.pipeline, kind, StageRange(wrapped[kind], key))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rt.run_round()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [(e.self_device_time_total, e.key, e.count)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernels.sort(reverse=True)
-    busy_s = sum(k[0] for k in kernels) / 1e6
-    emit(phase="profile", path=path, wall_s=wall, device_busy_s=busy_s,
-         idle_share=1.0 - busy_s / wall, timings=rt.stage_timings[-1],
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt.run_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for kind, stage in wrapped.items():
+            setattr(rt.pipeline, kind, stage)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    # kernels of one stream overlap where a launch starts before the one
+    # ahead of it ends, so busy time is the union of their intervals
+    busy = merged((e.time_range.start, e.time_range.end) for e in device)
+    busy_s = sum(hi - lo for lo, hi in busy) / 1e6
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    stages = {}
+    for key in (PROFILED_STAGES.values() if wrapped else ()):
+        windows = merged((e.time_range.start, e.time_range.end) for e in events
+                         if e.device_type == DeviceType.CPU
+                         and e.name == f"stage.{key}")
+        inside = sum(max(0, min(b, hi) - max(a, lo))
+                     for a, b in busy for lo, hi in windows)
+        stages[key] = {"ranges": len(windows),
+                       "profiled_s": sum(hi - lo for lo, hi in windows) / 1e6,
+                       "device_busy_s": inside / 1e6,
+                       "unprofiled_s": unprofiled.get(key, 0.0),
+                       "busy_over_unprofiled": inside / 1e6
+                       / max(unprofiled.get(key, 0.0), 1e-9)}
+    round_s = sum(unprofiled.values())
+    emit(phase="profile", path=path, schedule=rt.schedule, wall_s=wall,
+         device_busy_s=busy_s, idle_share=1.0 - busy_s / wall,
+         kernel_sum_s=sum(us for us, _ in by_name.values()) / 1e6,
+         unprofiled_round_s=round_s, busy_over_unprofiled=busy_s / round_s,
+         stages=stages, timings=rt.stage_timings[-1],
          top=[{"kernel": k[:120], "us": us, "count": n}
-              for us, k, n in kernels[:20]])
+              for k, (us, n) in top])
 
 
 def main(argv) -> int:
@@ -1282,13 +1572,16 @@ def main(argv) -> int:
         paths[f"f32_{m}"] = path_f32(ds, m)
     for name in TIERED_PATHS:
         paths[name] = path_tiered(ds, name)
+    for name in ASYNC_PATHS:
+        paths[name] = path_async(ds, name)
     path_baselines(ds)
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c, _ in paths.values())
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     if "--profile" in argv:
         for name, (_, rt) in paths.items():
-            phase_profile(name, rt)
+            for each in rt if isinstance(rt, tuple) else (rt,):
+                phase_profile(name, each)
     keys = ("name", "form", "route", "source", "replaces", "variant", "launches",
             "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -70,9 +70,16 @@ def build_runtime(
     arrays with the reference's keys and layouts).  ``tiers=S > 1`` runs
     the two-tier round of ``repro_torch.fl.hier`` (S sub-communities, then
     a second-level committee round); ``tiers=1`` is the flat round.
-    ``mesh`` and ``schedule="async"`` are the reference's sharded and
-    asynchronous engines; they raise ``NotImplementedError`` until
-    ported."""
+
+    ``schedule="async"`` runs the same stages under the asynchronous round
+    engine (``repro_torch.fl.async_engine``): each cohort's training is
+    dispatched to the card while the host finishes the previous cohort's
+    committee work (in a tiered round, slice s+1 trains while slice s
+    sub-aggregates).  Host rng draws and chain appends keep the sequential
+    order, so the results are held bit-identical to
+    ``schedule="sequential"``: the same RoundLogs, committees, chain
+    payloads and params.  ``mesh`` (the reference's sharded engine) raises
+    ``NotImplementedError`` until ported."""
     cfg = build_config(cfg, baseline=baseline)
     if tiers is not None:
         if isinstance(cfg, FLConfig):

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
 
 
@@ -44,8 +46,12 @@ def normalize_weights(K: int, weights: Optional[Any], device="cpu") -> torch.Ten
     the fused int8 kernel weigh committee scores identically."""
     if weights is None:
         w = torch.ones((K,), dtype=torch.float32, device=device)
+    elif isinstance(weights, torch.Tensor):
+        w = weights.to(device=device, dtype=torch.float32)
     else:
-        w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+        # host scores (a list, say): a non-blocking copy, so a stage that
+        # aggregates does not wait for device work queued before it
+        w = to_device(np.asarray(weights, dtype=np.float32), device)
     return w / torch.clamp(w.sum(), min=1e-12)
 
 

@@ -9,9 +9,9 @@ code path.  ``FLConfig`` has no ``use_kernels``: the baselines aggregate
 with the plain reductions, as the reference's do.
 
 Both entry points run on ``device`` ("cuda" by default; they raise when
-CUDA is absent unless ``device="cpu"``).  ``mesh=`` and
-``schedule="async"`` raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+CUDA is absent unless ``device="cpu"``).  ``FLTrainer`` takes
+``schedule="async"`` (``repro_torch.fl.async_engine``); ``mesh=`` raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from torch.func import grad
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapter import ModelAdapter
+from repro_torch.fl.async_engine import AsyncRoundPipeline
 from repro_torch.fl.client import make_eval_fn, make_local_train_fn
 from repro_torch.fl.pipeline import (
     RoundContext,
@@ -83,6 +84,9 @@ class FLTrainer:
         self._eval = make_eval_fn(adapter, self.device)
         self.pipeline = build_pipeline(baseline_stage_names(), stages,
                                        max_cohorts=1)
+        self.schedule = schedule
+        if schedule == "async":
+            self.pipeline = AsyncRoundPipeline.from_pipeline(self.pipeline)
         self.accuracies: List[float] = []
         self.stage_timings: List[Dict[str, float]] = []
         self._round = 0

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.aggregation import aggregate_pytrees, flatten_updates
 from repro_torch.core.consensus import CommitteeConsensus
+from repro_torch.device import to_device
 from repro_torch.fl.client import sample_client_batches
 from repro_torch.fl.pipeline import (
     RoundContext,
@@ -239,10 +240,8 @@ class HierValidator:
             )
             for j in ctx.round_committee
         ]
-        st.val_x2 = torch.from_numpy(
-            np.stack([p[0][0] for p in vpairs])).to(ctx.device)
-        st.val_y2 = torch.from_numpy(
-            np.stack([p[1][0] for p in vpairs])).to(ctx.device)
+        st.val_x2 = to_device(np.stack([p[0][0] for p in vpairs]), ctx.device)
+        st.val_y2 = to_device(np.stack([p[1][0] for p in vpairs]), ctx.device)
 
     # dispatch runs the inner validator's prepare, which draws the slice's
     # validation batches from the host rng
@@ -297,6 +296,8 @@ class HierValidator:
         # stack before the next slice lands (the memory bound)
         ctx.updates = {}
         ctx.cohort_updates = []
+        ctx.cohort_stacked = None
+        ctx.cohort_scores = None
         ctx.row_quant = {}
         ctx.score_table = {}
 

@@ -12,6 +12,12 @@ Port of ``repro/fl/pipeline.py`` for the single-device round:
   reward once, timing every stage into ``ctx.timings``.  After each stage
   it waits for the device (``torch.cuda.synchronize`` on CUDA), so each
   bucket holds its own work.
+* The trainer and the committee validators are split into ``dispatch``
+  (host rng draws and device launches) and ``finalize`` (the host work
+  that reads the results); ``__call__`` runs both back to back.
+  ``repro_torch.fl.async_engine`` schedules the halves so that one
+  cohort's training runs on the card while the host finishes the
+  previous cohort's committee work.
 
 Registered here: the BFLC stages ``active``, ``local_sgd``,
 ``committee``, ``committee_int8``, ``top_k``, ``top_k_int8``, ``pytree``,
@@ -40,7 +46,7 @@ from repro_torch.core.aggregation import (
 from repro_torch.core.attacks import ATTACKS
 from repro_torch.core.consensus import CommitteeConsensus, ValidationRecord
 from repro_torch.core.incentive import distribute_rewards
-from repro_torch.device import synchronize
+from repro_torch.device import HostCopy, synchronize, to_device
 from repro_torch.fl.client import sample_client_batches
 from repro_torch.tree import tree_stack, tree_unstack
 
@@ -80,10 +86,15 @@ class RoundContext:
     # chain-codec quantization, cached so the packer reuses the rows
     # instead of re-quantizing the packed stack
     row_quant: Dict[int, Any] = field(default_factory=dict)
-    # per-cohort state (overwritten each cohort)
+    # per-cohort state (overwritten each cohort; the async engine stages
+    # these between its cohort ring slots and the shared context)
     cohort: int = 0
     trainers: List[int] = field(default_factory=list)
     cohort_updates: List[Any] = field(default_factory=list)
+    cohort_stacked: Any = None             # a sharded trainer's stack (None here)
+    cohort_poisoned: List[int] = field(default_factory=list)
+    cohort_scores: Any = None              # validator's (P, Q) scores, in flight
+    train_inflight: Any = None             # trainer's dispatched update stack
     # accumulated collection state
     trainers_total: List[int] = field(default_factory=list)
     updates: Dict[int, Any] = field(default_factory=dict)     # uploader -> update
@@ -329,32 +340,54 @@ def sample_cohort_batches(ctx: RoundContext):
         )
         for i in ctx.trainers
     ]
-    xs = np.stack([p[0] for p in pairs])
-    ys = np.stack([p[1] for p in pairs])
-    return (torch.from_numpy(xs).to(ctx.device),
-            torch.from_numpy(ys).to(ctx.device))
+    return (to_device(np.stack([p[0] for p in pairs]), ctx.device),
+            to_device(np.stack([p[1] for p in pairs]), ctx.device))
 
 
-def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> None:
-    """Per-node attack injection for malicious trainers (in place)."""
+def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> List[int]:
+    """Per-node attack injection for malicious trainers (in place).
+    Returns the poisoned indices, also recorded in ``ctx.cohort_poisoned``."""
     cfg, rng = ctx.cfg, ctx.rng
     attack = ATTACKS[cfg.attack]
+    poisoned = []
     for idx, node_id in enumerate(ctx.trainers):
         if ctx.is_malicious(node_id):
             updates[idx] = attack(
                 rng, updates[idx], cfg.attack_sigma, ref=ctx.params
             ) if cfg.attack == "gaussian" else attack(rng, updates[idx])
+            poisoned.append(idx)
+    ctx.cohort_poisoned = poisoned
+    return poisoned
 
 
-@register("local_trainer", "local_sgd")
-def train_local_sgd(ctx: RoundContext) -> None:
+class LocalSGDTrainer:
     """(2) cohort-batched local SGD + attack injection for malicious
-    trainers."""
-    xs, ys = sample_cohort_batches(ctx)
-    stacked = ctx.local_train_fn(ctx.params, xs, ys)
-    updates = tree_unstack(stacked, len(ctx.trainers))
-    poison_cohort_updates(ctx, updates)
-    ctx.cohort_updates = updates
+    trainers.
+
+    ``dispatch`` draws the cohort's batches from the host rng and launches
+    the vmapped training into ``ctx.train_inflight`` without waiting for
+    it; ``finalize`` unstacks the updates and poisons the malicious
+    trainers' (the attacks go through host numpy, so a poisoned cohort
+    waits for its training there)."""
+
+    def dispatch(self, ctx: RoundContext) -> None:
+        xs, ys = sample_cohort_batches(ctx)
+        ctx.train_inflight = ctx.local_train_fn(ctx.params, xs, ys)
+        ctx.cohort_stacked = None          # one device: no sharded stack
+
+    def finalize(self, ctx: RoundContext) -> None:
+        stacked = ctx.train_inflight
+        ctx.train_inflight = None
+        updates = tree_unstack(stacked, len(ctx.trainers))
+        poison_cohort_updates(ctx, updates)
+        ctx.cohort_updates = updates
+
+    def __call__(self, ctx: RoundContext) -> None:
+        self.dispatch(ctx)
+        self.finalize(ctx)
+
+
+train_local_sgd = register("local_trainer", "local_sgd")(LocalSGDTrainer())
 
 
 class CommitteeValidator:
@@ -362,7 +395,15 @@ class CommitteeValidator:
     call, collusion overlay, median acceptance via CommitteeConsensus.
 
     ``prepare`` runs once per round: it samples each member's validation
-    batch and binds the (live) score table to the consensus object."""
+    batch and binds the (live) score table to the consensus object.
+    ``_scores_device`` is the score program (subclasses swap it).
+    ``dispatch`` launches it and starts the copy of the (P, Q) matrix to
+    the host (``ctx.cohort_scores``), drawing no host rng; ``finalize``
+    waits for that copy alone, then runs the collusion overlay and the
+    consensus admissions."""
+
+    # dispatch draws no host rng: the async engine's rng edges read this
+    dispatch_uses_rng = False
 
     def prepare(self, ctx: RoundContext) -> None:
         cfg, rng = ctx.cfg, ctx.rng
@@ -373,25 +414,26 @@ class CommitteeValidator:
             )
             for j in ctx.round_committee
         ]
-        ctx.val_x = torch.from_numpy(
-            np.stack([p[0][0] for p in vpairs])).to(ctx.device)
-        ctx.val_y = torch.from_numpy(
-            np.stack([p[1][0] for p in vpairs])).to(ctx.device)
+        ctx.val_x = to_device(np.stack([p[0][0] for p in vpairs]), ctx.device)
+        ctx.val_y = to_device(np.stack([p[1][0] for p in vpairs]), ctx.device)
         ctx.consensus = CommitteeConsensus(
             ctx.round_committee, accept_threshold=cfg.accept_threshold
         )
         ctx.consensus.bind_score_table(ctx.score_table)
 
-    def _scores(self, ctx: RoundContext) -> torch.Tensor:
-        """The cohort's (P, Q) accuracy matrix (subclasses swap the
-        score program)."""
+    def _scores_device(self, ctx: RoundContext) -> torch.Tensor:
+        """The cohort's (P, Q) accuracy matrix, still in flight."""
         return ctx.score_matrix_fn(
             ctx.params, tree_stack(ctx.cohort_updates), ctx.val_x, ctx.val_y
         )
 
-    def __call__(self, ctx: RoundContext) -> None:
+    def dispatch(self, ctx: RoundContext) -> None:
+        ctx.cohort_scores = HostCopy(self._scores_device(ctx))
+
+    def finalize(self, ctx: RoundContext) -> None:
         cfg, rng = ctx.cfg, ctx.rng
-        honest_scores = self._scores(ctx).cpu().numpy()    # (P, Q)
+        honest_scores = ctx.cohort_scores.wait().numpy()   # (P, Q)
+        ctx.cohort_scores = honest_scores
         for i, uploader in enumerate(ctx.trainers):
             row = {}
             for j, member in enumerate(ctx.round_committee):
@@ -412,6 +454,10 @@ class CommitteeValidator:
         # the paper's aggregation trigger: k QUALIFIED updates
         if len(ctx.consensus.accepted_records()) >= cfg.k_updates:
             ctx.collected = True
+
+    def __call__(self, ctx: RoundContext) -> None:
+        self.dispatch(ctx)
+        self.finalize(ctx)
 
 
 register("validator", "committee")(CommitteeValidator())
@@ -447,7 +493,7 @@ class Int8CommitteeValidator(CommitteeValidator):
     candidate from its quantized row in one read, so the committee scores
     exactly the blob the packer stores, and the packer reuses the rows."""
 
-    def _scores(self, ctx: RoundContext) -> torch.Tensor:
+    def _scores_device(self, ctx: RoundContext) -> torch.Tensor:
         if ctx.int8_score_fn is None:
             raise RuntimeError(
                 "committee_int8 needs ctx.int8_score_fn: build the runtime "

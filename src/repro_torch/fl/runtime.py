@@ -14,8 +14,10 @@ numpy, seeded from ``cfg.seed`` and drawn in the reference's order, so a
 seed gives the same cohorts, committees and poison in both packages.
 
 ``BFLCRuntime`` runs on ``device`` ("cuda" by default; it raises when CUDA
-is absent unless ``device="cpu"``).  Options this port does not have yet
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+is absent unless ``device="cpu"``).  ``schedule="async"`` runs the same
+stages under ``repro_torch.fl.async_engine``, bit-identical to the
+sequential engine.  ``mesh=`` (the sharded rounds) is not ported yet and
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.core.node import Node, NodeManager
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapter import ModelAdapter
+from repro_torch.fl.async_engine import AsyncRoundPipeline
 from repro_torch.fl.client import (
     make_eval_fn,
     make_local_train_fn,
@@ -98,14 +101,11 @@ class RoundLog:
 
 
 def check_schedule_and_mesh(mesh, schedule: str) -> None:
-    """Refuse the engines this port does not have yet, by ROADMAP item."""
+    """Refuse an unknown schedule, and the sharded engine this port does
+    not have yet (by ROADMAP item)."""
     if schedule not in ("sequential", "async"):
         raise ValueError(
             f"schedule={schedule!r} must be 'sequential' or 'async'"
-        )
-    if schedule == "async":
-        raise NotImplementedError(
-            "schedule='async' is not ported yet: ROADMAP.md Queue 1 item 10"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -221,6 +221,11 @@ class BFLCRuntime:
             self.pipeline, self._hier_inner = build_hier_pipeline(cfg, stages)
         else:
             self.pipeline = build_pipeline(default_stage_names(cfg), stages)
+        self.schedule = schedule
+        if schedule == "async":
+            # the same stage set under another runner: bit-identical
+            # products, overlapped execution (repro_torch.fl.async_engine)
+            self.pipeline = AsyncRoundPipeline.from_pipeline(self.pipeline)
         self.logs: List[RoundLog] = []
         self.stage_timings: List[Dict[str, float]] = []
         # per-round tiered memory accounting (tiers > 1): tiers,

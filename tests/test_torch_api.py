@@ -35,7 +35,7 @@ def test_default_device_is_cuda_and_raises_without_it(tiny_ds):
 @pytest.mark.parametrize("kwargs, cfg, match", [
     (dict(mesh=object()), {}, "Queue 1 item 11"),
     (dict(tiers=2, mesh=object()), {}, "Queue 1 item 11"),
-    (dict(schedule="async"), {}, "Queue 1 item 10"),
+    (dict(schedule="async", mesh=object()), {}, "Queue 1 item 11"),
 ])
 def test_unported_options_raise_not_implemented(tiny_ds, kwargs, cfg, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -107,7 +107,7 @@ def test_build_config_and_runtime_pick_the_baseline(datasets):
 
 @pytest.mark.parametrize("kwargs, match", [
     (dict(mesh=object()), "Queue 1 item 11"),
-    (dict(schedule="async"), "Queue 1 item 10"),
+    (dict(schedule="async", mesh=object()), "Queue 1 item 11"),
 ])
 def test_fl_trainer_unported_engines_raise(datasets, kwargs, match):
     _, td = datasets

@@ -367,3 +367,87 @@ def test_tiered_round_on_the_card_stores_the_plain_slice_blobs(cuda):
         pq, ps = fused_agg_ref(q, s, w, "cwmed", 1, quantize_out=True)
         assert torch.equal(blob["q"].cpu(), pq)
         assert torch.equal(_bits(blob["scales"].cpu()), _bits(ps))
+
+
+def test_async_round_pair_on_the_card_is_bit_identical(cuda):
+    """One small tiers=2 int8 round pair (``committee_int8`` inside) under
+    both schedules from the same init: the same RoundLogs, committees,
+    ``hier_logs``, chain payloads and params, bit for bit, and the same
+    kernel launches; slice 1's training is dispatched before slice 0's
+    validation finalizes."""
+    from repro_torch.api import build_runtime
+    from repro_torch.data import make_femnist_like
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_leaves
+
+    ds = make_femnist_like(num_clients=24, mean_samples=40, test_size=200,
+                           seed=3)
+    cfg = dict(active_proportion=1.0, committee_fraction=0.3, k_updates=4,
+               local_steps=3, local_batch=8, quantize_chain=True,
+               use_kernels=True, seed=0)
+    init = femnist_adapter(8).init(torch.Generator().manual_seed(0))
+    rts, launches = {}, {}
+    for schedule in ("sequential", "async"):
+        rt = build_runtime(femnist_adapter(8), ds, cfg, tiers=2, device="cuda",
+                           schedule=schedule, initial_params=init,
+                           stages={"validator": "committee_int8"})
+        before = launch_counts()
+        rt.run(2, eval_every=2)
+        after = launch_counts()
+        rts[schedule] = rt
+        launches[schedule] = {k: after[k] - before[k] for k in after}
+    seq, asy = rts["sequential"], rts["async"]
+    assert launches["sequential"] == launches["async"]
+    assert seq.logs == asy.logs and seq.committee == asy.committee
+    assert seq.hier_logs == asy.hier_logs
+    assert seq.chain.verify() and asy.chain.verify()
+    assert [b.hash for b in seq.chain.blocks] == [b.hash for b in asy.chain.blocks]
+    for bs, ba in zip(seq.chain.blocks, asy.chain.blocks):
+        if bs.kind != "committee":
+            for x, y in zip(tree_leaves(seq.chain.raw_payload(bs)),
+                            tree_leaves(asy.chain.raw_payload(ba))):
+                assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    for x, y in zip(tree_leaves(seq.global_params()),
+                    tree_leaves(asy.global_params())):
+        assert torch.equal(_bits(x.cpu()), _bits(y.cpu()))
+    order = asy.pipeline.last_order
+    assert order.index("train_dispatch[1]") < order.index("validate_finalize[0]")
+
+
+def test_committee_finalize_waits_for_its_score_copy(cuda):
+    """``dispatch`` returns with the score program still running, and
+    ``finalize`` reads the same (P, Q) matrix a blocking ``.cpu()`` of the
+    scores reads: the host waits on the copy's event before it reads."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core.consensus import CommitteeConsensus
+    from repro_torch.fl.pipeline import CommitteeValidator, RoundContext
+
+    P, Q = 54, 36
+    src = torch.rand((P, Q), generator=torch.Generator().manual_seed(0)).to(cuda)
+    want = src.cpu().numpy()
+
+    class Delayed(CommitteeValidator):
+        def _scores_device(self, ctx):
+            torch.cuda._sleep(200_000_000)     # about 0.1 s of device time
+            return src * 1.0
+
+    cfg = types.SimpleNamespace(collusion=False, k_updates=8)
+    ctx = RoundContext(cfg=cfg, rng=np.random.default_rng(0), adapter=None,
+                       data=None, params=None, round=0, device=cuda,
+                       trainers=list(range(P)),
+                       round_committee=list(range(100, 100 + Q)),
+                       cohort_updates=[None] * P)
+    ctx.consensus = CommitteeConsensus(ctx.round_committee)
+    ctx.consensus.bind_score_table(ctx.score_table)
+    validator = Delayed()
+    validator.dispatch(ctx)
+    assert not torch.cuda.current_stream().query()     # still in flight
+    validator.finalize(ctx)
+    np.testing.assert_array_equal(ctx.cohort_scores, want)
+    for i, uploader in enumerate(ctx.trainers):
+        assert [ctx.score_table[uploader][m] for m in ctx.round_committee] == \
+               [float(v) for v in want[i]]
