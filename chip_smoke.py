@@ -87,6 +87,38 @@ Phases, one JSON line each:
                     steps of train_standalone: finite params that moved,
                     test accuracies in [0, 1], no kernel launched (the
                     baselines aggregate with the plain reductions)
+           serve_olmo_1b  olmo-1b at full width and depth (1,176,764,416
+                    f32 params from a seeded generator): one prompt's
+                    prefill logits against the same forward on the CPU with
+                    float64 weights (``full_width_reference``); behind
+                    repro_torch.serve.ServeEngine, the reference CLI's trace
+                    (16 Poisson requests at 20/s, prompts 16-64, generations
+                    8-32, 4 slots, max_len 96) served continuous and static
+                    on a WallClock after warmup (``serve`` lines: tok/s,
+                    TTFT and latency percentiles, occupancy), every request
+                    equal to its oracle decoding alone in the same slot row
+                    (``serve_syncs``: one more continuous run makes no
+                    implicit host-device sync and decodes the same tokens)
+                    and to its batch-1 oracle (``batch_invariance``, with
+                    the logit bits one row against four changes);
+                    ``decode_tick`` one step's host, CUDA-event and
+                    profiled busy time at 1 and 4 rows; then on a
+                    VirtualClock a hot swap at tick 24 to the model block of
+                    one int8 round (K = 2 seeded deltas at 1e-3 of each
+                    leaf's scale, top_k_int8 packer + fused_int8 fedavg
+                    through ``commit_scored_round``): one swap, nothing
+                    dropped, requests before / after equal to their
+                    version's oracle, spanning ones keeping their v0 prefix;
+                    the commit's host seconds split into pack, aggregate and
+                    chain append; each update block decoded (dequantize)
+                    within one quantization step of its delta, the model
+                    block equal to v0 + the plain fused fedavg of the stored
+                    blobs bit for bit, verify(); exactly one quantize_stack,
+                    one fused_agg and K dequantize launches; then
+                    ``kernel_path`` lines for the three kernels at
+                    D = 1,176,764,416 (K x Dpad > 2^31) against their plain
+                    versions over chunks of lanes, with CUDA-event times
+                    and bytes bounds
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -1439,6 +1471,522 @@ def path_baselines(ds) -> None:
     check(not any(counts.values()), "a baseline launched a kernel")
 
 
+# the serving path: olmo-1b at full width and depth, f32, served with the
+# reference CLI's defaults (launch/serve.py), then hot-swapped mid-trace to
+# the model block of one int8 round of K = 2 update deltas
+SERVE_ARCH = "olmo-1b"
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 96
+SERVE_TRACE = dict(num_requests=16, rate=20.0, prompt_lens=(16, 32, 48, 64),
+                   gen_lens=(8, 16, 32), seed=0)
+SERVE_K = 2
+SERVE_SWAP_TICK = 24
+SERVE_SCORES = (0.9, 0.7)          # the two uploaders' committee medians
+# the card's f32 prefill logits against the CPU's float64 forward, relative
+# to the largest logit: f32 rounding over sums of up to 8,192 products and
+# 16 layers stays near 1e-6 of it; a fault in the GEMMs moves it by O(1)
+SERVE_F64_RTOL = 1e-4
+LANE_CHUNK = 1 << 25               # lanes a plain-version chunk at LM width
+
+
+def timed_appends(chain, device) -> dict:
+    """Wrap the chain's append methods with host timers (waiting for the
+    device first): seconds spent in update-block and model-block appends,
+    the payload's host copy and SHA-256 included."""
+    from repro_torch.device import synchronize
+
+    spent = {"append_update": 0.0, "append_model": 0.0}
+    for name in spent:
+        orig = getattr(chain, name)
+
+        def timed(*args, _orig=orig, _name=name, **kw):
+            synchronize(device)
+            t0 = time.perf_counter()
+            out = _orig(*args, **kw)
+            spent[_name] += time.perf_counter() - t0
+            return out
+
+        setattr(chain, name, timed)
+    return spent
+
+
+def oracle_row(cfg, params, res, req, cache: dict):
+    """The request's tokens alone in its own slot row of the engine's batch
+    (the same-shape oracle; memoized per params version, prompt and row)."""
+    from repro_torch.serve.engine import greedy_oracle
+
+    key = (id(params), req.rid, res.slot, req.max_new)
+    if key not in cache:
+        cache[key] = greedy_oracle(cfg, params, req.prompt, req.max_new,
+                                   max_len=SERVE_MAX_LEN, rows=SERVE_SLOTS,
+                                   row=max(res.slot, 0))
+    return cache[key]
+
+
+def batch_invariance(cfg, params, trace, reports) -> None:
+    """The reference's pin as it states it: every served request equals its
+    batch-1 oracle token for token, under both policies.  Reported beside
+    it: the logits request 0 decodes from at 1 row and at SERVE_SLOTS rows
+    (row 0), which round differently (PERF.md §6), and their smallest
+    top-2 margin."""
+    import torch
+
+    from repro_torch.serve.engine import greedy_oracle
+
+    t0 = time.perf_counter()
+    batch1 = {req.rid: greedy_oracle(cfg, params, req.prompt, req.max_new,
+                                     max_len=SERVE_MAX_LEN) for req in trace}
+    equal = {policy: sum(res.tokens == batch1[res.rid] for res in rep.results)
+             for policy, rep in reports.items()}
+    req = trace[0]
+    logits = [greedy_oracle(cfg, params, req.prompt, req.max_new,
+                            max_len=SERVE_MAX_LEN, rows=rows,
+                            return_logits=True)[1]
+              for rows in (1, SERVE_SLOTS)]
+    diff = (logits[0] - logits[1]).abs()
+    top2 = torch.topk(logits[0], 2, dim=-1).values
+    emit(phase="batch_invariance", path="serve_olmo_1b",
+         seconds=time.perf_counter() - t0, requests=len(trace),
+         equal_batch1_oracle=equal, steps=len(diff),
+         logits_max_abs_diff=float(diff.max()),
+         logits_differing=int((diff > 0).sum()), logits=int(diff.numel()),
+         min_top2_margin=float((top2[:, 0] - top2[:, 1]).min()))
+    check(all(n == len(trace) for n in equal.values()),
+          f"serve_olmo_1b: requests equal to the batch-1 oracle {equal}")
+
+
+def full_width_reference(cfg, params, prompt) -> None:
+    """An independent check of the card's full-width arithmetic: the prefill
+    logits of one prompt (its last position, which the first token is the
+    argmax of) against the same prefill on the CPU with float64 weights
+    (its norms, RoPE and attention compute in float32, as the model does),
+    within SERVE_F64_RTOL of the largest logit, with the same argmax."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import Batch
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    prefill = make_prefill_step(cfg, SERVE_MAX_LEN)
+    S = len(prompt)
+    outs = []
+    for dev, tree in ((params["embed"].device, params),
+                      ("cpu", tree_map(lambda t: t.to("cpu", torch.float64),
+                                       params))):
+        with torch.no_grad():
+            outs.append(prefill(tree, Batch(
+                tokens=torch.tensor(prompt[None], dtype=torch.int32,
+                                    device=dev),
+                positions=torch.arange(S, dtype=torch.int32,
+                                       device=dev)[None]))[0][0, -1].cpu())
+        del tree
+    got, want = outs[0].double(), outs[1]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    top1 = (int(got.argmax()), int(want.argmax()))
+    top2 = torch.topk(want, 2).values
+    emit(phase="full_width_reference", path="serve_olmo_1b", prompt_len=S,
+         max_abs_err=err, max_abs_logit=scale, rtol=SERVE_F64_RTOL,
+         top1=top1, top2_margin=float(top2[0] - top2[1]),
+         seconds=time.perf_counter() - t0)
+    check(err <= SERVE_F64_RTOL * scale and top1[0] == top1[1],
+          f"serve_olmo_1b: prefill logits off the float64 CPU prefill by "
+          f"{err} (max |logit| {scale}), argmax {top1}")
+
+
+def commit_scored_round(chain, params, updates: dict, scores: dict, *,
+                        round_t: int, device):
+    """Commit one round of K already-scored updates ({uploader: update
+    tree}, {uploader: committee median}) through the registered
+    ``top_k_int8`` packer (one quantize_stack launch, K int8 update blocks)
+    and ``fused_int8`` aggregator (the fused fedavg, then round
+    ``round_t + 1``'s model block over ``params``), on a RoundContext built
+    for them with a one-member committee.  Each stage is timed, waiting for
+    the device, in ``ctx.timings["pack"]`` and ``["aggregate"]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.consensus import CommitteeConsensus
+    from repro_torch.core.node import Node, NodeManager
+    from repro_torch.device import synchronize
+    from repro_torch.fl.pipeline import RoundContext, resolve
+    from repro_torch.fl.runtime import BFLCConfig
+
+    manager = NodeManager(permission_fee=0.0)
+    consensus = CommitteeConsensus([0])
+    consensus.bind_score_table({u: {0: float(s)} for u, s in scores.items()})
+    for u in updates:
+        manager.join(Node(node_id=u, data_indices=np.zeros((0,), np.int64)))
+        consensus.validate(u, u)
+    ctx = RoundContext(
+        cfg=BFLCConfig(k_updates=len(updates), quantize_chain=True,
+                       use_kernels=True),
+        rng=np.random.default_rng(round_t), adapter=None, data=None,
+        params=params, round=round_t, device=torch.device(device),
+        manager=manager, chain=chain, consensus=consensus,
+        updates=dict(updates))
+    for key, kind, name in (("pack", "packer", "top_k_int8"),
+                            ("aggregate", "aggregator", "fused_int8")):
+        t0 = time.perf_counter()
+        resolve(kind, name)(ctx)
+        synchronize(ctx.device)
+        ctx.timings[key] = time.perf_counter() - t0
+    return ctx
+
+
+def served_without_syncs(engine, trace, timed) -> None:
+    """One more (untimed) continuous run, on a VirtualClock, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the engine's loop makes no
+    implicit host-device sync (the token vectors come back through pinned
+    copies whose events it waits on, which is explicit), and each request
+    decodes the same tokens as in the timed run."""
+    import warnings
+
+    import torch
+
+    from repro_torch.serve import VirtualClock
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rep = engine.run(trace, policy="continuous", clock=VirtualClock())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    same = sum(a.tokens == b.tokens for a, b in zip(rep.results, timed.results))
+    emit(phase="serve_syncs", path="serve_olmo_1b", implicit_syncs=len(sites),
+         sites=sorted(set(sites)), ticks=rep.ticks,
+         requests_equal_to_timed_run=same)
+    check(not sites, f"serve_olmo_1b: implicit syncs in the engine at {sites}")
+    check(same == len(trace), "serve_olmo_1b: a request decoded other tokens "
+                              "on a VirtualClock than on the WallClock")
+
+
+def decode_tick(cfg, params) -> None:
+    """One decode step at 1 row and at SERVE_SLOTS rows: the host's time to
+    issue it, its CUDA-event time, and under torch.profiler the device's
+    busy time in it (the union of its kernels' intervals) and its kernels
+    by time.  Busy well under the event time means the host paces it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_cache
+
+    step = make_decode_step(cfg, return_logits=False)
+    reps = 10
+    for rows in (1, SERVE_SLOTS):
+        cache = init_cache(cfg, rows, SERVE_MAX_LEN, torch.float32, "cuda")
+        tok = torch.zeros((rows, 1), dtype=torch.int32, device="cuda")
+        pos = torch.full((rows,), 40, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            step(params, tok, pos, cache)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                step(params, tok, pos, cache)
+            end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3 / reps
+            end.synchronize()
+            event_ms = start.elapsed_time(end) / reps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step(params, tok, pos, cache)
+                torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+        busy_ms = sum(hi - lo for lo, hi in merged(
+            (e.time_range.start, e.time_range.end) for e in device)) / 3e3
+        by_name = {}
+        for e in device:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        emit(phase="decode_tick", path="serve_olmo_1b", rows=rows,
+             host_ms=host_ms, event_ms=event_ms, device_busy_ms=busy_ms,
+             busy_share=busy_ms / event_ms, kernels=len(device) / 3,
+             top=[{"kernel": k[:100], "us": us / 3, "count": n / 3}
+                  for k, (us, n) in top])
+
+
+def plain_chunks(fn, *arrays, nblk_args=(), lanes: int = LANE_CHUNK):
+    """Run a plain version over chunks of whole tiles of the lane axis (the
+    last axis of each array; ``nblk_args`` indexes the arrays whose last
+    axis counts tiles), yielding (lo, hi, result)."""
+    from repro_torch.kernels.tiling import BLOCK_D
+
+    n = arrays[0].shape[-1]
+    for lo in range(0, n, lanes):
+        hi = min(n, lo + lanes)
+        args = [a[..., lo // BLOCK_D: -(-hi // BLOCK_D)] if i in nblk_args
+                else a[..., lo:hi] for i, a in enumerate(arrays)]
+        yield lo, hi, fn(*args)
+
+
+def lm_kernel_lines(stack, q, s, w, counts) -> None:
+    """quantize_stack, fused_agg fedavg and dequantize at the LM's width:
+    each kernel against its plain version over chunks of lanes, its
+    CUDA-event time (after the counted run: these launches count nowhere),
+    the plain version's time over its chunks, and its bytes bound."""
+    import torch
+
+    from repro_torch.kernels.fused_agg import fused_agg_kernel, fused_agg_ref
+    from repro_torch.kernels.quantize import (
+        dequantize_kernel, dequantize_ref, quantize_stack_kernel,
+        quantize_stack_ref,
+    )
+    from repro_torch.kernels.tiling import BLOCK_D
+
+    K, Dpad = q.shape
+    nblk = Dpad // BLOCK_D
+    f32, i8 = 4, 1
+    q0, s0 = q[0].contiguous(), s[0].contiguous()
+
+    def worst(got, plain, *arrays, nblk_args=()):
+        """max |got - plain| over lanes, chunk by chunk (q as ints); for a
+        tuple result the scales are compared over their tiles."""
+        err = 0.0
+        for lo, hi, want in plain_chunks(plain, *arrays, nblk_args=nblk_args):
+            pairs = ((got[0][..., lo:hi], want[0]),
+                     (got[1][..., lo // BLOCK_D:-(-hi // BLOCK_D)], want[1])) \
+                if isinstance(want, tuple) else ((got[..., lo:hi], want),)
+            for g, w_ in pairs:
+                err = max(err, float((g.double() - w_.double()).abs().max()))
+        return err
+
+    def plain_ms(plain, *arrays, nblk_args=()):
+        def run():
+            for _ in plain_chunks(plain, *arrays, nblk_args=nblk_args):
+                pass
+        run()
+        return _events_ms(run, 1)
+
+    cases = (
+        ("quantize_stack", "K = 2",
+         lambda: quantize_stack_kernel(stack), quantize_stack_ref, (stack,), (),
+         K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad, None),
+        ("fused_agg", "fedavg, K = 2",
+         lambda: fused_agg_kernel(q, s, w),
+         lambda q_, s_: fused_agg_ref(q_, s_, w), (q, s), (1,),
+         K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32, 4 * K * Dpad,
+         None),
+        ("dequantize", "one update block",
+         lambda: dequantize_kernel(q0, s0), dequantize_ref, (q0, s0), (1,),
+         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
+         lambda: torch.mul(q0.view(-1, BLOCK_D), s0[:, None])),
+    )
+    for name, form, fn, plain, arrays, nblk_args, nbytes, ops_, library in cases:
+        got = fn()
+        err = worst(got, plain, *arrays, nblk_args=nblk_args)
+        del got
+        check(err == 0.0, f"{name} at D = {Dpad}: max_abs_err {err}")
+        fn()
+        ms = _events_ms(fn, 3)
+        b_ms, b_by = bound_ms(nbytes, ops_)
+        emit(phase="kernel_path", path="serve_olmo_1b", name=name, form=form,
+             shape=[list(a.shape) for a in arrays],
+             k_x_dpad=K * Dpad if name != "dequantize" else Dpad,
+             over_2_31=(K * Dpad if name != "dequantize" else Dpad) > 2 ** 31,
+             launches=counts[name], max_abs_err=err, ms=ms,
+             plain_ms=plain_ms(plain, *arrays, nblk_args=nblk_args),
+             library_ms=_events_ms(library, 3) if library else None,
+             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+             launches_x_gap_ms=counts[name] * (ms - b_ms))
+        torch.cuda.empty_cache()
+
+
+def path_serve_olmo_1b() -> dict:
+    """olmo-1b at full width and depth (f32, random init from a seed) behind
+    the continuous-batching engine: its prefill logits against a float64
+    CPU forward, the reference CLI's 16-request Poisson trace served
+    continuous and static on a WallClock, every request held to its
+    same-row and its batch-1 oracle, then a deterministic hot swap on a
+    VirtualClock to the model block of one int8 round committed through
+    the top_k_int8 packer and the fused_int8 aggregator, with its
+    read-back and the chain's verify().  Launches counted: one
+    quantize_stack and one fused_agg (the round), K dequantize (the
+    read-back), nothing else."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.aggregation import flatten_updates, normalize_weights
+    from repro_torch.configs import registry
+    from repro_torch.core.blockchain import Chain
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fused_agg import fused_agg_ref
+    from repro_torch.kernels.ops import Int8UpdateCodec
+    from repro_torch.models import init_model
+    from repro_torch.serve import (
+        ChainParamSource, ServeEngine, VirtualClock, WallClock,
+        make_poisson_trace,
+    )
+    from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
+
+    path = "serve_olmo_1b"
+    cfg = registry.get_config(SERVE_ARCH)
+    dev = torch.device("cuda")
+    out = {}
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        synchronize(dev)
+        n = sum(t.numel() for t in tree_leaves(params))
+        emit(phase="serve_setup", path=path, arch=cfg.name,
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             vocab=cfg.vocab_size, params=n, param_bytes=4 * n,
+             init_s=time.perf_counter() - t0)
+        trace = make_poisson_trace(vocab_size=cfg.vocab_size, **SERVE_TRACE)
+        full_width_reference(cfg, params, trace[0].prompt)
+        engine = ServeEngine(cfg, params, num_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, device=dev)
+        t0 = time.perf_counter()
+        engine.warmup(SERVE_TRACE["prompt_lens"])
+        emit(phase="serve_warmup", path=path, seconds=time.perf_counter() - t0)
+        reports, oracle = {}, {}
+        for policy in ("continuous", "static"):
+            rep = engine.run(trace, policy=policy, clock=WallClock())
+            reports[policy] = rep
+            emit(phase="serve", path=path, policy=policy, clock="wall",
+                 slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, **rep.metrics())
+            for res, req in zip(rep.results, trace):
+                check(len(res.tokens) == req.max_new,
+                      f"{path} {policy}: request {req.rid} truncated")
+                check(res.tokens == oracle_row(cfg, params, res, req, oracle),
+                      f"{path} {policy}: request {req.rid} differs from its "
+                      f"oracle")
+        served_without_syncs(engine, trace, reports["continuous"])
+        batch_invariance(cfg, params, trace, reports)
+        decode_tick(cfg, params)
+
+        # ---- the hot swap, on a VirtualClock ---------------------------
+        t0 = time.perf_counter()
+        chain = Chain(k_updates_per_round=SERVE_K,
+                      update_codec=Int8UpdateCodec(params))
+        chain.append_model(params, 0)
+        genesis_s = time.perf_counter() - t0
+        appends = timed_appends(chain, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        deltas = {u: tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                                    device=dev)
+                              * (1e-3 * t.std()), params)
+                  for u in range(1, SERVE_K + 1)}
+        scores = dict(zip(deltas, SERVE_SCORES))
+        committed = []
+
+        def commit(tick):
+            if tick == SERVE_SWAP_TICK and not committed:
+                t1 = time.perf_counter()
+                committed.append(commit_scored_round(
+                    chain, params, deltas, scores, round_t=0, device=dev))
+                committed.append(time.perf_counter() - t1)
+
+        swap_engine = ServeEngine(cfg, params, num_slots=SERVE_SLOTS,
+                                  max_len=SERVE_MAX_LEN,
+                                  param_source=ChainParamSource(chain),
+                                  device=dev)
+        rep = swap_engine.run(trace, policy="continuous", clock=VirtualClock(),
+                              on_tick=commit)
+        check(len(committed) == 2, f"{path}: the round was not committed")
+        ctx, commit_s = committed
+        v1 = ctx.new_params
+        m = rep.metrics()
+        emit(phase="serve", path=path, policy="continuous", clock="virtual",
+             swaps=rep.swaps, requests=m["requests"], ticks=m["ticks"],
+             generated_tokens=m["generated_tokens"], occupancy=m["occupancy"],
+             wall_s=m["wall_s"])
+        emit(phase="commit", path=path, k=SERVE_K, seconds=commit_s,
+             pack_s=ctx.timings["pack"], aggregate_s=ctx.timings["aggregate"],
+             append_update_s=appends["append_update"],
+             append_model_s=appends["append_model"],
+             pack_minus_append_s=ctx.timings["pack"] - appends["append_update"],
+             aggregate_minus_append_s=(ctx.timings["aggregate"]
+                                       - appends["append_model"]),
+             genesis_append_s=genesis_s, packed=ctx.packed_ids,
+             weights=ctx.weights)
+        check(len(rep.swaps) == 1 and rep.swaps[0]["round"] == 1
+              and rep.swaps[0]["tick"] == SERVE_SWAP_TICK,
+              f"{path}: swaps {rep.swaps}")
+        swap_t = rep.swaps[0]["t"]
+        kinds = {"before": 0, "after": 0, "spanning": 0}
+        for res, req in zip(rep.results, trace):
+            check(len(res.tokens) == req.max_new,
+                  f"{path} swap: request {req.rid} dropped or truncated")
+            if not res.spans_swap:
+                version = res.version_admitted
+                kinds["before" if version == 0 else "after"] += 1
+                check(res.tokens == oracle_row(cfg, params if version == 0
+                                               else v1, res, req, oracle),
+                      f"{path} swap: request {req.rid} (v{version}) differs "
+                      f"from its oracle")
+            else:
+                kinds["spanning"] += 1
+                pre = 1 + round(swap_t - res.admitted)
+                want = oracle_row(cfg, params, res, req, oracle)
+                check(res.tokens[:pre] == want[:pre],
+                      f"{path} swap: request {req.rid} lost its v0 prefix")
+        emit(phase="swap_check", path=path, **kinds)
+        check(all(kinds.values()), f"{path}: swap trace kinds {kinds}")
+
+        # ---- read-back --------------------------------------------------
+        t0 = time.perf_counter()
+        blocks = chain.updates_at_round(0)
+        blobs = chain.update_payloads_at_round(0, decode=False)
+        steps = []
+        for blk, blob, decoded in zip(blocks, blobs,
+                                      chain.update_payloads_at_round(0)):
+            err = (ravel_pytree(decoded)[0]
+                   - ravel_pytree(deltas[blk.uploader])[0]).abs()
+            tile_err = F.pad(err, (0, (-err.numel()) % 2048)).view(-1, 2048)
+            ratio = float((tile_err.amax(dim=1) / blob["scales"]).max())
+            steps.append(ratio)
+            del decoded, err, tile_err
+        check(max(steps) <= 1.0, f"{path}: a decoded block is off its delta by "
+                                 f"{max(steps)} quantization steps")
+        q = torch.stack([b["q"] for b in blobs])
+        s = torch.stack([b["scales"] for b in blobs])
+        w = normalize_weights(SERVE_K, ctx.weights, dev)
+        flat0, flat1 = ravel_pytree(params)[0], ravel_pytree(v1)[0]
+        D = flat0.numel()
+        differ = 0
+        for lo, hi, agg in plain_chunks(lambda q_, s_: fused_agg_ref(q_, s_, w),
+                                        q, s, nblk_args=(1,)):
+            hi = min(hi, D)
+            if lo >= D:
+                break
+            want = flat0[lo:hi] + agg[:hi - lo]
+            differ += int((want.view(torch.int32)
+                           != flat1[lo:hi].view(torch.int32)).sum())
+        del flat0, flat1
+        verified = chain.verify()
+        emit(phase="readback", path=path, blocks=len(blobs),
+             max_err_in_steps=steps, model_lanes_differing=differ,
+             verify=verified, height=chain.height,
+             seconds=time.perf_counter() - t0,
+             peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(differ == 0, f"{path}: {differ} lanes of the model block differ "
+                           f"from v0 + the plain fused fedavg")
+        check(verified and chain.height == SERVE_K + 2, f"{path}: chain.verify()")
+        out.update(stack=flatten_updates([deltas[u] for u in ctx.packed_ids])[0],
+                   q=q, s=s, w=w)
+
+    want = {"quantize_stack": 1, "fused_agg": 1, "dequantize": SERVE_K}
+    counts, _ = counted(path, drive, want)
+    check({k: v for k, v in counts.items() if v} == want,
+          f"{path}: launches {counts}, want exactly {want}")
+    lm_kernel_lines(out["stack"], out["q"], out["s"], out["w"], counts)
+    out.clear()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def merged(intervals) -> list:
     """The union of (start, end) intervals, as sorted disjoint intervals."""
     out = []
@@ -1556,6 +2104,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    t_script = time.perf_counter()
     phase_card()
     phase_build()
     rows = phase_kernels()
@@ -1575,13 +2124,19 @@ def main(argv) -> int:
     for name in ASYNC_PATHS:
         paths[name] = path_async(ds, name)
     path_baselines(ds)
+    t0 = time.perf_counter()
+    serve_counts = path_serve_olmo_1b()
+    emit(phase="path_seconds", path="serve_olmo_1b",
+         seconds=time.perf_counter() - t0)
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c, _ in paths.values())
+        r["launches"] = (sum(c[r["name"]] for c, _ in paths.values())
+                         + serve_counts[r["name"]])
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     if "--profile" in argv:
         for name, (_, rt) in paths.items():
             for each in rt if isinstance(rt, tuple) else (rt,):
                 phase_profile(name, each)
+    emit(phase="script", seconds=time.perf_counter() - t_script)
     keys = ("name", "form", "route", "source", "replaces", "variant", "launches",
             "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -10,11 +10,18 @@ is easy to find:
              attacks, aggregation
   data/      the synthetic FEMNIST-like community (numpy, bit-equal to
              the reference's generator)
-  configs/   the FEMNIST CNN over the reference's parameter dict
+  configs/   the FEMNIST CNN over the reference's parameter dict, and the
+             LM zoo's arch registry (``registry.get_config``)
   fl/        client local SGD and scoring, the round pipeline, the runtime
+  models/    the LM zoo's dense attention decoders (init, forward,
+             prefill, decode with a KV cache)
+  launch/    the serving steps and the serving CLI
+  serve/     the continuous-batching engine that hot-swaps to each model
+             block the chain commits
   api.py     ``build_runtime``
 
 Parameters are plain dicts of tensors with the reference's key names and
-layouts (NHWC images, HWIO conv kernels, (in, out) dense weights).  This
+layouts (NHWC images, HWIO conv kernels, (in, out) dense weights, an LM's
+stacked ``units`` leaves and ``tail`` tuple).  This
 package imports torch and numpy only — never jax, and nothing of ``repro``.
 """

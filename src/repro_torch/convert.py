@@ -3,7 +3,9 @@
 The reference's params become numpy with ``jax.tree.map(np.asarray, p)``;
 ``from_numpy_tree`` turns that nested dict into the port's dict of tensors
 with the same keys, shapes and layouts (HWIO conv kernels, (in, out) dense
-weights), and ``to_numpy_tree`` is its inverse.
+weights; an LM's ``units`` and ``tail`` stay tuples and its unit leaves
+keep their leading ``num_units`` axis, so ``tree_paths`` walks the
+reference's key paths in order), and ``to_numpy_tree`` is its inverse.
 """
 from __future__ import annotations
 

@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -14,6 +16,15 @@ import importlib, pkgutil, sys
 import repro_torch, repro_torch.api
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(bad)
@@ -29,6 +40,16 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 def test_import_loads_no_jax_and_no_reference_module():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models", "repro_torch.serve",
+                                    "repro_torch.launch.serve"])
+def test_serving_modules_load_no_jax_alone(module):
+    """Each serving entry point, imported on its own in a fresh process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
