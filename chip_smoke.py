@@ -119,6 +119,35 @@ Phases, one JSON line each:
                     D = 1,176,764,416 (K x Dpad > 2^31) against their plain
                     versions over chunks of lanes, with CUDA-event times
                     and bytes bounds
+           train_lm_100m  repro_torch.launch.train.run_lm on the card at the
+                    CLI's defaults (repro-100m, 116,411,136 params, batch
+                    16, seq 256, lr 3e-4, linear_warmup_cosine(lr, 20,
+                    steps)): standard for 100 steps, then bflc (4 cohorts,
+                    committee 4) for 50; per mode the loss every 10 steps,
+                    s/step and tokens/s over the steady steps (host clock,
+                    synchronized at the window's edges), CUDA-event ms a
+                    step, peak memory, 5 profiled steps (busy share, launches
+                    a step, leading kernels) and model flops against the f32
+                    peak; every loss finite and the last 10 steps' mean
+                    TRAIN_LOSS_DROP below the first; one step's gradients at
+                    batch 4 against the same step on the CPU in float64,
+                    both modes (``grad_check``); no kernel launches
+           serve_checkpoint  a ServeEngine (serve_olmo_1b's trace shape)
+                    polling a CheckpointParamSource on a directory into
+                    which the trained params arrive as model_round_1.msgpack
+                    (f32) at tick 24 and their int8 codec blob (quantize) as
+                    model_round_2.msgpack at tick 48: two swaps, nothing
+                    dropped, requests under one version equal to its oracle,
+                    the loaded f32 tree and the decoded (dequantize) int8
+                    model bit for bit their plain versions; save and load
+                    seconds; quantize and dequantize at D = 116,411,136
+                    (``kernel_path``)
+           train_olmo_1b  make_train_step on olmo-1b at full width and depth
+                    (1,176,764,416 params), bflc, batch 8, seq 256, AdamW
+                    warmup 1: 3 steps, step 1 moves nothing, steps 2-3 move
+                    every leaf; s/step, peak memory, busy share, f32 share
+           train_fl  run_fl for 2 rounds at the CLI's defaults (a plain f32
+                    chain: no kernel launches): verify(), accuracy in [0, 1]
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -126,6 +155,7 @@ exits non-zero and prints no result; without CUDA it exits 2.
 from __future__ import annotations
 
 import functools
+import gc
 import itertools
 import json
 import math
@@ -1987,6 +2017,645 @@ def path_serve_olmo_1b() -> dict:
     return counts
 
 
+# ----------------------------------------------------------------------
+# training: the LM trainer, olmo-1b, a serving node on a checkpoint
+# directory, the FL rounds of launch/train.py
+# ----------------------------------------------------------------------
+TRAIN_LM_STEPS = {"standard": 100, "bflc": 50}
+TRAIN_WARM = 10          # steps before the timed window
+TRAIN_PROFILED = 5       # steady steps under torch.profiler, after the window
+# nats the last 10 steps' mean must sit below step 1's.  At the default lr
+# the loss falls from about 9.16 to the chain's unigram entropy (8.77 nats,
+# the best loss without context; ``unigram_entropy``) within 100 steps and
+# stays there for 400 (H100, PERF.md), as the reference's does at a small
+# width: a drop of 0.37 (standard) and 0.33 (bflc, 50 steps) is what the
+# data allows before the model learns the transitions
+TRAIN_LOSS_DROP = 0.25
+# the reference's own learning test (tests/test_system.py::
+# test_lm_driver_learns): the small model at vocab 512 and lr 5e-3 ends
+# below CONTEXT_LOSS after 100 steps, under its chain's unigram entropy, so
+# it predicts from context and not from the token marginal alone
+CONTEXT_FLAGS = ("--small", "--vocab", "512", "--lr", "5e-3", "--seq", "64",
+                 "--steps", "100", "--log-every", "100")
+CONTEXT_LOSS = 5.0
+# the card's gradients against the same step on the CPU in float64 (its
+# norms, RoPE and attention compute in float32, as the model does): each
+# leaf within GRAD_RTOL of its largest |g|, the loss within F64_LOSS_RTOL.
+# float32 rounding over 12 units and sums of up to 4,096 products reads
+# 3.3e-6 (standard) and 2.8e-5 (bflc, whose committee weights magnify a
+# cohort loss's last bits) of a leaf's largest gradient (H100, PERF.md).
+# The same step with TF32 on is the control: it must land above the limit
+GRAD_CHECK_ROWS = 4
+GRAD_RTOL = {"standard": 1e-4, "bflc": 3e-4}
+F64_LOSS_RTOL = 1e-5
+OLMO_TRAIN = dict(arch="olmo-1b", batch=8, seq=256, steps=3, lr=3e-4,
+                  cohorts=4, committee=4)
+# the weight leaves a token's forward multiplies (per token, 2 flops each)
+MATMUL_KEYS = {"wq", "wk", "wv", "wo", "up", "gate", "down", "lm_head"}
+CKPT_SWAP_TICKS = (24, 48)       # round 1 (f32), round 2 (int8 blob) appear
+TRAIN_FL_ROUNDS = 2
+
+
+def train_args(*flags: str):
+    """launch/train.py's CLI at its defaults (on the card), with ``flags``."""
+    from repro_torch.launch.train import build_parser
+
+    return build_parser().parse_args(list(flags))
+
+
+def matmul_params(cfg, params) -> int:
+    """Parameters a token's forward multiplies: every attention and MLP
+    weight, and the head (the embedding table when the head is tied)."""
+    from repro_torch.tree import tree_paths
+
+    head = {"embed"} if cfg.tie_embeddings else set()
+    return sum(t.numel() for path, t in tree_paths(params)
+               if path[-1] in MATMUL_KEYS | head)
+
+
+def step_flops(cfg, n_mm: int, rows: int, seq: int, val_rows: int = 0) -> float:
+    """Model flops of one train step: 6 N per token for the forward and
+    backward matmuls, plus dense attention's QK^T and PV (4 S^2 hd per head
+    and row, times 3 for the backward), plus the bflc committee's
+    validation forward (2 N per token and 4 S^2 hd per head and row)."""
+    attn = 4.0 * seq * seq * cfg.resolved_head_dim * cfg.num_heads \
+        * cfg.num_layers
+    return (rows * (6.0 * n_mm * seq + 3 * attn)
+            + val_rows * (2.0 * n_mm * seq + attn))
+
+
+def unigram_entropy(lm) -> float:
+    """Entropy (nats) of the Markov chain's stationary token distribution
+    (power iteration): the loss of the best prediction that ignores the
+    context."""
+    import numpy as np
+
+    pi = np.full(lm.vocab, 1.0 / lm.vocab)
+    for _ in range(200):
+        nxt = np.zeros(lm.vocab)
+        for j in range(lm.branching):
+            np.add.at(nxt, lm.succ[:, j], pi * lm.probs[j])
+        pi = nxt
+    pi = pi[pi > 0]
+    return float(-(pi * np.log(pi)).sum())
+
+
+def fresh_peak() -> float:
+    """Collect what earlier paths left to the garbage collector, set the
+    card's peak-memory counter to 0 and return the GB still allocated, from
+    which a path's peak is counted."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def device_busy(prof, wall_s: float, n: int) -> dict:
+    """The device's busy time in a profiled window (the union of its
+    kernels' intervals) against the window's host time, the launches a
+    step and the leading kernels by device time."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_s = sum(hi - lo for lo, hi in merged(
+        (e.time_range.start, e.time_range.end) for e in device)) / 1e6
+    by_name = {}
+    for e in device:
+        us, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_s": wall_s, "device_busy_s": busy_s,
+            "busy_share": busy_s / wall_s, "kernels_per_step": len(device) / n,
+            "top": [{"kernel": name[:100], "us_per_step": us / n,
+                     "count_per_step": c / n} for name, (us, c) in top]}
+
+
+class TrainMeter:
+    """``run_lm``'s ``on_step``: the losses (device tensors, read at the
+    end), a timed window of steady steps (host clock with the device
+    synchronized at both edges, and CUDA events), then TRAIN_PROFILED steps
+    under torch.profiler, and the last state."""
+
+    def __init__(self, steps: int):
+        import torch
+
+        self.steps, self.losses, self.state = steps, [], None
+        self.lo, self.hi = TRAIN_WARM, steps - TRAIN_PROFILED
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self.host = [0.0, 0.0]
+        self.prof, self.prof_wall = None, 0.0
+
+    def __call__(self, step, state, metrics):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.losses.append(metrics["loss"])
+        if step + 1 in (self.lo, self.hi):
+            edge = 0 if step + 1 == self.lo else 1
+            self.events[edge].record()
+            torch.cuda.synchronize()
+            self.host[edge] = time.perf_counter()
+        if step + 1 == self.hi:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.prof_wall = time.perf_counter()
+        if step + 1 == self.steps:
+            torch.cuda.synchronize()
+            self.prof_wall = time.perf_counter() - self.prof_wall
+            self.prof.stop()
+            self.state = state
+
+    def report(self) -> dict:
+        """Profiling adds host time, so the profiled window's busy share is
+        a lower bound; ``busy_over_unprofiled`` holds the same device time
+        against as many unprofiled steady steps."""
+        n = self.hi - self.lo
+        s_per_step = (self.host[1] - self.host[0]) / n
+        prof = device_busy(self.prof, self.prof_wall, TRAIN_PROFILED)
+        prof["busy_over_unprofiled"] = (prof["device_busy_s"]
+                                        / (TRAIN_PROFILED * s_per_step))
+        return {"timed_steps": n, "s_per_step": s_per_step,
+                "event_ms_per_step": self.events[0].elapsed_time(
+                    self.events[1]) / n,
+                "profile": prof}
+
+
+def grad_check(cfg, mode: str) -> None:
+    """One step's gradients at GRAD_CHECK_ROWS rows on the card against the
+    same port step on the CPU in float64, from the seeded init and the same
+    Markov-chain batch; the card's step again with TF32 on, which must
+    miss the limit the float32 step meets."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.lm_synthetic import MarkovLM
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import init_model
+    from repro_torch.tree import tree_map, tree_paths
+
+    t0 = time.perf_counter()
+    args = train_args()
+    grad_fn = make_grad_fn(cfg, mode=mode, num_cohorts=GRAD_CHECK_ROWS,
+                           committee_size=args.committee)
+    lm = MarkovLM(cfg.vocab_size, seed=1)
+    rng = np.random.default_rng(7)
+    batch = lm_batch(lm, rng, GRAD_CHECK_ROWS, args.seq, "cuda")
+    val = lm_batch(lm, rng, args.committee, args.seq, "cuda")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    g_card, _, ce_card = grad_fn(params, batch, val)
+    g_card = tree_map(lambda t: t.cpu(), g_card)
+    ce_card = float(ce_card)
+    card_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        g_tf32 = tree_map(lambda t: t.cpu(), grad_fn(params, batch, val)[0])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    on_cpu = lambda tree: tree_map(
+        lambda t: None if t is None else (
+            t.to("cpu", torch.float64) if t.is_floating_point() else t.cpu()),
+        tree)
+    p64 = on_cpu(params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g64, _, ce64 = grad_fn(p64, type(batch)(*on_cpu(tuple(batch))),
+                           type(val)(*on_cpu(tuple(val))))
+    cpu_s = time.perf_counter() - t0
+
+    def worst_leaf(grads):
+        worst, worst_path = 0.0, None
+        for (path, a), (_, b) in zip(tree_paths(grads), tree_paths(g64)):
+            rel = float((a.double() - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_path = rel, path
+        return worst, worst_path
+
+    worst, worst_path = worst_leaf(g_card)
+    tf32_worst, _ = worst_leaf(g_tf32)
+    rtol = GRAD_RTOL[mode]
+    loss_rel = abs(ce_card - float(ce64)) / abs(float(ce64))
+    emit(phase="grad_check", path="train_lm_100m", mode=mode,
+         rows=GRAD_CHECK_ROWS, seq=args.seq, loss_card=ce_card,
+         loss_cpu_f64=float(ce64), loss_rel_err=loss_rel,
+         worst_leaf_rel_err=worst, worst_leaf=list(map(str, worst_path)),
+         rtol=rtol, tf32_worst_leaf_rel_err=tf32_worst, card_s=card_s,
+         cpu_f64_s=cpu_s)
+    check(worst <= rtol, f"train_lm_100m {mode}: gradient leaf "
+                              f"{worst_path} off the float64 CPU step by "
+                              f"{worst} of its largest |g|")
+    check(loss_rel <= F64_LOSS_RTOL, f"train_lm_100m {mode}: loss off the "
+                                     f"float64 CPU step by {loss_rel}")
+    check(tf32_worst > rtol, f"train_lm_100m {mode}: the TF32 control is "
+                             f"within {tf32_worst} <= {rtol} of the float64 "
+                             f"step, so the limit cannot tell TF32 from f32")
+
+
+def context_check() -> None:
+    """run_lm at the reference's learning-test settings (CONTEXT_FLAGS) on
+    the card: every loss finite, the last below CONTEXT_LOSS and below the
+    chain's unigram entropy."""
+    import torch
+
+    from repro_torch.data.lm_synthetic import MarkovLM
+    from repro_torch.launch.train import run_lm
+
+    args = train_args(*CONTEXT_FLAGS)
+    losses = []
+    t0 = time.perf_counter()
+    final = run_lm(args, on_step=lambda step, state, m: losses.append(
+        m["loss"]))
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    lm = MarkovLM(args.vocab, seed=1)
+    floor = unigram_entropy(lm)
+    emit(phase="context_check", path="train_lm_100m", flags=CONTEXT_FLAGS,
+         loss_every_10=[losses[0]] + losses[9::10], final=final,
+         unigram_entropy=floor, chain_entropy=float(lm.entropy()),
+         limit=CONTEXT_LOSS, seconds=seconds)
+    check(all(math.isfinite(x) for x in losses),
+          "context_check: a loss is not finite")
+    check(final < min(CONTEXT_LOSS, floor),
+          f"context_check: final loss {final}, unigram entropy {floor}")
+    torch.cuda.empty_cache()
+
+
+def path_train_lm_100m() -> dict:
+    """repro_torch.launch.train.run_lm on the card at the CLI's defaults
+    (repro-100m, 116,411,136 params): ``standard`` for 100 steps, then
+    ``bflc`` (4 cohorts, committee 4) for 50, each from the seeded init.
+    Per mode: the loss every 10 steps, s/step and tokens/s over the steady
+    steps, CUDA-event ms a step, peak memory, the device's busy share of 5
+    profiled steps, their launches and leading kernels, and model flops over
+    step time as a share of the f32 peak.  Every loss finite, the last 10
+    steps' mean at least TRAIN_LOSS_DROP below the first step's (beside
+    the chain's unigram entropy), the small model learning context
+    (``context_check``), and one step's gradients against the float64 CPU
+    step in both modes.  Returns
+    the launch counts and the standard run's trained params."""
+    import torch
+
+    from repro_torch.data.lm_synthetic import MarkovLM
+    from repro_torch.launch.train import lm_100m_config, run_lm
+    from repro_torch.tree import tree_leaves
+
+    path = "train_lm_100m"
+    cfg = lm_100m_config(train_args().vocab)
+    floor = unigram_entropy(MarkovLM(cfg.vocab_size, seed=1))
+    out = {}
+
+    def drive():
+        for mode, steps in TRAIN_LM_STEPS.items():
+            args = train_args("--steps", str(steps), "--mode", mode)
+            meter = TrainMeter(steps)
+            held = fresh_peak()
+            t0 = time.perf_counter()
+            run_lm(args, on_step=meter)
+            seconds = time.perf_counter() - t0
+            losses = [float(x) for x in meter.losses]
+            params = meter.state.params
+            n = sum(t.numel() for t in tree_leaves(params))
+            n_mm = matmul_params(cfg, params)
+            val_rows = args.committee if mode == "bflc" else 0
+            flops = step_flops(cfg, n_mm, args.batch, args.seq, val_rows)
+            rep = meter.report()
+            tokens = args.batch * args.seq
+            last = sum(losses[-10:]) / 10
+            emit(phase="train", path=path, mode=mode, steps=steps,
+                 params=n, matmul_params=n_mm, batch=args.batch,
+                 seq=args.seq, val_rows=val_rows, seconds=seconds,
+                 loss_every_10=[losses[0]] + losses[9::10],
+                 last_10_mean=last, unigram_entropy=floor,
+                 tokens_per_s=tokens / rep["s_per_step"],
+                 model_flops_per_step=flops,
+                 f32_peak_share=flops / (rep["event_ms_per_step"] * 1e-3)
+                 / F32_OPS_PER_S,
+                 peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 allocated_before_gb=held, **rep)
+            check(n == 116_411_136, f"{path}: {n} params")
+            check(all(math.isfinite(x) for x in losses),
+                  f"{path} {mode}: a loss is not finite")
+            check(last <= losses[0] - TRAIN_LOSS_DROP,
+                  f"{path} {mode}: the last 10 losses average {last}, the "
+                  f"first was {losses[0]}")
+            if mode == "standard":
+                out["params"] = params
+            del meter, params
+            torch.cuda.empty_cache()
+        context_check()
+        for mode in TRAIN_LM_STEPS:
+            grad_check(cfg, mode)
+
+    counts, _ = counted(path, drive, {})
+    check(not any(counts.values()), f"{path}: launches {counts}")
+    out["counts"] = counts
+    return out
+
+
+def path_train_olmo_1b() -> dict:
+    """make_train_step on olmo-1b at full width and depth (1,176,764,416
+    params), bflc mode, AdamW under linear_warmup_cosine(lr, 1, 3): step 1
+    (lr 0) leaves the params bit for bit, steps 2 and 3 move them; every
+    loss finite.  Each step timed on the host clock between device
+    synchronizations (s/step and the f32 peak share from step 2, the first
+    after warm-up), peak memory, and step 3 under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.lm_synthetic import MarkovLM
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.tree import tree_leaves
+
+    path, o = "train_olmo_1b", OLMO_TRAIN
+    cfg = registry.get_config(o["arch"])
+    dev = torch.device("cuda")
+
+    def drive():
+        held = fresh_peak()
+        opt = adamw(linear_warmup_cosine(o["lr"], 1, o["steps"]))
+        step_fn = make_train_step(cfg, opt, mode="bflc",
+                                  num_cohorts=o["cohorts"],
+                                  committee_size=o["committee"])
+        p0 = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        state = TrainState(p0, opt.init(p0),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        lm = MarkovLM(cfg.vocab_size, seed=1)
+        rng = np.random.default_rng(0)
+        seconds, losses, prof_rep, moved = [], [], None, []
+        for i in range(o["steps"]):
+            batch = lm_batch(lm, rng, o["batch"], o["seq"], dev)
+            val = lm_batch(lm, rng, o["committee"], o["seq"], dev)
+            torch.cuda.synchronize()
+            prof = None
+            if i == o["steps"] - 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch, val)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.stop()
+                prof_rep = device_busy(prof, seconds[-1], 1)
+            losses.append(float(m["loss"]))
+            moved.append(sum(not torch.equal(a, b) for a, b in zip(
+                tree_leaves(state.params), tree_leaves(p0))))
+        n = sum(t.numel() for t in tree_leaves(p0))
+        n_mm = matmul_params(cfg, p0)
+        flops = step_flops(cfg, n_mm, o["batch"], o["seq"], o["committee"])
+        emit(phase="train", path=path, mode="bflc", arch=cfg.name, params=n,
+             matmul_params=n_mm, batch=o["batch"], seq=o["seq"],
+             val_rows=o["committee"], losses=losses, step_s=seconds,
+             leaves_moved=moved, leaves=len(tree_leaves(p0)),
+             s_per_step=seconds[1],
+             tokens_per_s=o["batch"] * o["seq"] / seconds[1],
+             model_flops_per_step=flops,
+             f32_peak_share=flops / seconds[1] / F32_OPS_PER_S,
+             peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             allocated_before_gb=held, profile=prof_rep)
+        check(n == 1_176_764_416, f"{path}: {n} params")
+        check(all(math.isfinite(x) for x in losses), f"{path}: losses {losses}")
+        check(moved[0] == 0, f"{path}: step 1 (lr 0) moved {moved[0]} leaves")
+        leaves = len(tree_leaves(p0))
+        check(moved[1] == moved[2] == leaves, f"{path}: steps 2-3 moved "
+                                              f"{moved[1:]} of {leaves} leaves")
+
+    counts, _ = counted(path, drive, {})
+    check(not any(counts.values()), f"{path}: launches {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def path_serve_checkpoint(trained) -> dict:
+    """A serving node that follows a checkpoint directory: the trained
+    repro-100m params written through repro_torch.checkpoint as
+    model_round_1.msgpack (f32) at tick 24, their Int8UpdateCodec blob
+    (quantize kernel) as model_round_2.msgpack at tick 48, into the
+    directory a CheckpointParamSource on the card polls (its decode: the
+    dequantize kernel), behind a ServeEngine serving serve_olmo_1b's trace
+    shape from the untrained init.  Two swaps, nothing dropped, requests
+    wholly under one version equal to that version's oracle, spanning ones
+    keeping their prefix; the loaded f32 tree bit for bit the trained one,
+    the served int8 model bit for bit the plain dequantize of the plain
+    quantize.  Exactly one quantize and one dequantize launch; then both
+    kernels timed at D = 116,411,136."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.ops import Int8UpdateCodec
+    from repro_torch.kernels.quantize import dequantize_ref, quantize_ref
+    from repro_torch.kernels.tiling import BLOCK_D
+    from repro_torch.launch.train import lm_100m_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import (
+        CheckpointParamSource, ServeEngine, VirtualClock, checkpoint_name,
+        make_poisson_trace,
+    )
+    from repro_torch.tree import ravel_pytree, tree_leaves
+
+    path = "serve_checkpoint"
+    cfg = lm_100m_config(train_args().vocab)
+    dev = torch.device("cuda")
+    directory = os.path.join(ROOT, "build", "serve_checkpoint")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    timings, state = {"save_s": {}, "load_s": []}, {}
+
+    def drive():
+        v0 = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        codec = Int8UpdateCodec(trained)
+        src = CheckpointParamSource(directory, codec=codec, start_round=0,
+                                    device=dev)
+        poll = src.poll
+
+        def timed_poll():
+            t0 = time.perf_counter()
+            got = poll()
+            if got is not None:
+                synchronize(dev)
+                timings["load_s"].append(time.perf_counter() - t0)
+            return got
+
+        src.poll = timed_poll
+
+        def write(tick):
+            if tick not in CKPT_SWAP_TICKS:
+                return
+            round_t = 1 + CKPT_SWAP_TICKS.index(tick)
+            t0 = time.perf_counter()
+            if round_t == 1:
+                tree = trained
+            else:
+                state["blob"] = tree = codec.encode(trained)
+            save_pytree(os.path.join(directory, checkpoint_name(round_t)), tree)
+            timings["save_s"][round_t] = time.perf_counter() - t0
+
+        engine = ServeEngine(cfg, v0, num_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, param_source=src,
+                             device=dev)
+        trace = make_poisson_trace(vocab_size=cfg.vocab_size, **SERVE_TRACE)
+        rep = engine.run(trace, policy="continuous", clock=VirtualClock(),
+                         on_tick=write)
+        state.update(v0=v0, served=engine.params, rep=rep, trace=trace)
+
+    counts, _ = counted(path, drive, {"quantize": 1, "dequantize": 1})
+    check({k: v for k, v in counts.items() if v} == {"quantize": 1,
+                                                     "dequantize": 1},
+          f"{path}: launches {counts}")
+    rep, trace = state["rep"], state["trace"]
+    m = rep.metrics()
+    emit(phase="serve", path=path, policy="continuous", clock="virtual",
+         swaps=rep.swaps, requests=m["requests"], ticks=m["ticks"],
+         generated_tokens=m["generated_tokens"], occupancy=m["occupancy"],
+         wall_s=m["wall_s"])
+    check([(s["round"], s["tick"]) for s in rep.swaps]
+          == [(1, CKPT_SWAP_TICKS[0]), (2, CKPT_SWAP_TICKS[1])],
+          f"{path}: swaps {rep.swaps}")
+
+    # the f32 round loads bit for bit; the served int8 round is the plain
+    # dequantize of the plain quantize, and the blob the plain quantize
+    loaded = load_pytree(os.path.join(directory, checkpoint_name(1)),
+                         device=dev)
+    f32_same = all(same_bits(a, b) for a, b in zip(tree_leaves(loaded),
+                                                   tree_leaves(trained)))
+    flat = ravel_pytree(trained)[0]
+    D = flat.numel()
+    padded = F.pad(flat, (0, (-D) % BLOCK_D))
+    q_plain, s_plain = quantize_ref(padded)
+    blob = state["blob"]
+    blob_same = (torch.equal(blob["q"], q_plain)
+                 and same_bits(blob["scales"], s_plain) and blob["d"] == D)
+    decoded_same = same_bits(ravel_pytree(state["served"])[0],
+                             dequantize_ref(q_plain, s_plain)[:D])
+    emit(phase="checkpoint_check", path=path, d=D, dpad=padded.numel(),
+         f32_bit_identical=f32_same, blob_equal_to_plain_quantize=blob_same,
+         served_int8_equal_to_plain=decoded_same,
+         save_s=timings["save_s"], load_s=timings["load_s"],
+         file_bytes={r: os.path.getsize(os.path.join(directory,
+                                                     checkpoint_name(r)))
+                     for r in (1, 2)})
+    check(f32_same, f"{path}: the loaded f32 round differs from the trained "
+                    f"params")
+    check(blob_same, f"{path}: the round-2 blob differs from the plain "
+                     f"quantize")
+    check(decoded_same, f"{path}: the served int8 model differs from the "
+                        f"plain dequantize of the plain quantize")
+    del loaded
+
+    versions = {0: state["v0"], 1: trained, 2: state["served"]}
+    kinds, oracle = {"v0": 0, "v1": 0, "v2": 0, "spanning": 0}, {}
+    swap_ts = [s["t"] for s in rep.swaps]
+    for res, req in zip(rep.results, trace):
+        check(len(res.tokens) == req.max_new,
+              f"{path}: request {req.rid} dropped or truncated")
+        want = oracle_row(cfg, versions[res.version_admitted], res, req,
+                          oracle)
+        if not res.spans_swap:
+            kinds[f"v{res.version_admitted}"] += 1
+            check(res.tokens == want, f"{path}: request {req.rid} "
+                                      f"(v{res.version_admitted}) differs "
+                                      f"from its oracle")
+        else:
+            kinds["spanning"] += 1
+            swap_t = min(t for t in swap_ts if t > res.admitted)
+            pre = 1 + round(swap_t - res.admitted)
+            check(res.tokens[:pre] == want[:pre],
+                  f"{path}: request {req.rid} lost its "
+                  f"v{res.version_admitted} prefix")
+    emit(phase="swap_check", path=path, **kinds)
+    check(all(kinds.values()), f"{path}: swap trace kinds {kinds}")
+    ckpt_kernel_lines(padded, blob["q"], blob["scales"], counts)
+    state.clear()
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ckpt_kernel_lines(padded, q, s, counts) -> None:
+    """quantize (#1) and dequantize (#3) at the LM's width, after the
+    counted run (these launches count nowhere): each against its plain
+    version on the card, bit for bit, with CUDA-event times of the kernel,
+    the plain version and (dequantize) one torch.mul, and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.quantize import (
+        dequantize_kernel, dequantize_ref, quantize_kernel, quantize_ref,
+    )
+    from repro_torch.kernels.tiling import BLOCK_D
+
+    Dpad = padded.numel()
+    nblk = Dpad // BLOCK_D
+    cases = (
+        ("quantize", lambda: quantize_kernel(padded),
+         lambda: quantize_ref(padded), Dpad * 4 + Dpad + nblk * 4, 6 * Dpad,
+         None),
+        ("dequantize", lambda: dequantize_kernel(q, s),
+         lambda: dequantize_ref(q, s), Dpad + nblk * 4 + Dpad * 4, Dpad,
+         lambda: torch.mul(q.view(-1, BLOCK_D), s[:, None])),
+    )
+    for name, fn, plain, nbytes, ops_, library in cases:
+        got, want = fn(), plain()
+        err = max_err(got, want)
+        same = all(same_bits(g.float(), w.float()) for g, w in
+                   zip(got if isinstance(got, tuple) else (got,),
+                       want if isinstance(want, tuple) else (want,)))
+        del got, want
+        check(err == 0.0 and same, f"{name} at D = {Dpad}: max_abs_err {err}")
+        b_ms, b_by = bound_ms(nbytes, ops_)
+        ms = _events_ms(fn, 5)
+        emit(phase="kernel_path", path="serve_checkpoint", name=name,
+             shape=[Dpad], launches=counts[name], max_abs_err=err, ms=ms,
+             us=ms * 1e3, plain_ms=_events_ms(plain, 3),
+             library_ms=_events_ms(library, 5) if library else None,
+             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+             bound_share=b_ms / ms)
+        torch.cuda.empty_cache()
+
+
+def path_train_fl() -> dict:
+    """repro_torch.launch.train.run_fl for 2 rounds at the CLI's defaults
+    (100 clients, 20 % active, k = 8, 20 local steps, FEMNIST CNN width 16):
+    run_fl checks chain.verify(); the accuracy in [0, 1].  The defaults are
+    the reference's plain f32 chain, so no kernel launches."""
+    from repro_torch.launch.train import run_fl
+
+    path = "train_fl"
+    acc = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        acc["value"] = run_fl(train_args("--driver", "fl", "--rounds",
+                                         str(TRAIN_FL_ROUNDS)))
+        acc["seconds"] = time.perf_counter() - t0
+
+    counts, _ = counted(path, drive, {})
+    emit(phase="train_fl", path=path, rounds=TRAIN_FL_ROUNDS,
+         test_accuracy=acc["value"], seconds=acc["seconds"])
+    check(0.0 <= acc["value"] <= 1.0, f"{path}: accuracy {acc['value']}")
+    check(not any(counts.values()), f"{path}: launches {counts}")
+    return counts
+
+
 def merged(intervals) -> list:
     """The union of (start, end) intervals, as sorted disjoint intervals."""
     out = []
@@ -2124,13 +2793,26 @@ def main(argv) -> int:
     for name in ASYNC_PATHS:
         paths[name] = path_async(ds, name)
     path_baselines(ds)
+    later = {}
     t0 = time.perf_counter()
-    serve_counts = path_serve_olmo_1b()
+    later["serve_olmo_1b"] = path_serve_olmo_1b()
     emit(phase="path_seconds", path="serve_olmo_1b",
          seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    trained = path_train_lm_100m()
+    later["train_lm_100m"] = trained.pop("counts")
+    emit(phase="path_seconds", path="train_lm_100m",
+         seconds=time.perf_counter() - t0)
+    for name, run in (("serve_checkpoint",
+                       lambda: path_serve_checkpoint(trained.pop("params"))),
+                      ("train_olmo_1b", path_train_olmo_1b),
+                      ("train_fl", path_train_fl)):
+        t0 = time.perf_counter()
+        later[name] = run()
+        emit(phase="path_seconds", path=name, seconds=time.perf_counter() - t0)
     for r in rows:
         r["launches"] = (sum(c[r["name"]] for c, _ in paths.values())
-                         + serve_counts[r["name"]])
+                         + sum(c[r["name"]] for c in later.values()))
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     if "--profile" in argv:
         for name, (_, rt) in paths.items():

@@ -7,17 +7,21 @@ is easy to find:
   kernels/   int8 chain codec + fused int8 aggregation (CUDA C++ under
              ``kernels/csrc``, each beside a plain PyTorch version)
   core/      chain, committee consensus, election, nodes, incentives,
-             attacks, aggregation
-  data/      the synthetic FEMNIST-like community (numpy, bit-equal to
-             the reference's generator)
+             attacks, aggregation, the off-chain store
+  data/      the synthetic FEMNIST-like community and the Markov-chain LM
+             data (numpy, bit-equal to the reference's generators)
   configs/   the FEMNIST CNN over the reference's parameter dict, and the
              LM zoo's arch registry (``registry.get_config``)
   fl/        client local SGD and scoring, the round pipeline, the runtime
   models/    the LM zoo's dense attention decoders (init, forward,
              prefill, decode with a KV cache)
-  launch/    the serving steps and the serving CLI
+  optim/     SGD and AdamW over dicts of tensors, learning-rate schedules
+  checkpoint/  msgpack checkpoints in the reference's format (a msgpack
+             subset of the package's own)
+  launch/    the train / prefill / decode steps, the training CLI and the
+             serving CLI
   serve/     the continuous-batching engine that hot-swaps to each model
-             block the chain commits
+             block the chain commits or each checkpoint a trainer writes
   api.py     ``build_runtime``
 
 Parameters are plain dicts of tensors with the reference's key names and

@@ -1,4 +1,4 @@
-from repro_torch.fl.adapter import ModelAdapter, femnist_adapter
+from repro_torch.fl.adapter import ModelAdapter, femnist_adapter, lm_adapter
 from repro_torch.fl.baselines import FLConfig, FLTrainer, train_standalone
 # registers the tiered round's stages (sampler "tiered", validator and
 # packer "hier")
@@ -15,6 +15,7 @@ from repro_torch.fl.runtime import BFLCConfig, BFLCRuntime, RoundLog
 __all__ = [
     "ModelAdapter",
     "femnist_adapter",
+    "lm_adapter",
     "BFLCConfig",
     "BFLCRuntime",
     "RoundLog",

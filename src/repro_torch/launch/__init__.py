@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving steps and the serving CLI."""
+"""Launchers of the port: the train, prefill and decode steps, the
+training CLI and the serving CLI."""

@@ -12,7 +12,14 @@ Unit parameters keep the reference's stacked layout (every unit leaf has
 a leading ``num_units`` axis; ``tail`` is a tuple), so the port's
 sorted-key flatten walks the same leaves in the same order as the
 reference's ``ravel_pytree`` and the chain codec's tiles fall alike.  The
-reference ``lax.scan``s over that axis; here a Python loop indexes it.
+reference ``lax.scan``s over that axis; here a Python loop walks it.  The
+full-sequence paths take each stacked leaf apart once, with
+``torch.unbind``, whose backward stacks the units' gradients in one copy
+(indexing ``t[u]`` per unit would build a zero tensor of the whole stack
+for every unit in the backward and sum the U of them).  ``cfg.remat``
+checkpoints the units for the backward as the reference's
+``jax.checkpoint`` does: ``True`` each unit, ``"layer"`` each unit and
+each layer inside it (``torch.utils.checkpoint``, non-reentrant).
 
 Mamba, RWKV-6 and MoE layers and the audio / vision frontends wait for
 ROADMAP.md Queue 1 item 12: ``init_model`` and the forward paths raise
@@ -23,6 +30,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (
     attention_decode,
@@ -40,7 +48,7 @@ from repro_torch.models.layers import (
     not_ported,
     torch_dtype,
 )
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
 class Batch(NamedTuple):
@@ -199,6 +207,17 @@ def unit_slice(tree, u: int):
     return tree_map(lambda t: t[u], tree)
 
 
+def unbind_units(tree, n: int) -> List:
+    """The ``n`` units of a stacked unit tree, each leaf taken apart once
+    with ``torch.unbind`` (views into the stacked leaves)."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    units = []
+    for u in range(n):
+        it = iter([p[u] for p in parts])
+        units.append(tree_map(lambda _: next(it), tree))
+    return units
+
+
 # ----------------------------------------------------------------------------
 # full model
 # ----------------------------------------------------------------------------
@@ -209,17 +228,42 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
 
-def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
-    """The units in order, then the tail layers."""
-    per_unit: List[Tuple] = []
-    for u in range(cfg.num_units):
-        unit_params = unit_slice(params["units"], u)
-        caches = []
-        for i, spec in enumerate(cfg.unit):
+def _unit_forward(unit_params, x, positions, cfg, collect_cache, max_len):
+    """One unit's layers in order: returns (x, caches)."""
+    remat_layers = (cfg.remat == "layer" and not collect_cache
+                    and torch.is_grad_enabled())
+    caches = []
+    for i, spec in enumerate(cfg.unit):
+        if remat_layers:
+            # per-layer checkpoint: the unit's backward re-materializes one
+            # layer's internals at a time instead of the whole unit's
+            x = checkpoint(lambda lp, xin, _s=spec: apply_layer_forward(
+                lp, _s, xin, positions, cfg, False, 0)[0],
+                unit_params[i], x, use_reentrant=False)
+            caches.append(None)
+        else:
             x, ce = apply_layer_forward(unit_params[i], spec, x, positions, cfg,
                                         collect_cache, max_len)
             caches.append(ce)
-        per_unit.append(tuple(caches))
+    return x, tuple(caches)
+
+
+def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
+    """The units in order, then the tail layers."""
+    per_unit: List[Tuple] = []
+    remat = bool(cfg.remat) and not collect_cache and torch.is_grad_enabled()
+    units = unbind_units(params["units"], cfg.num_units) if cfg.num_units else []
+    for unit_params in units:
+        if remat:
+            # the unit's checkpoint; with remat == "layer" the inner
+            # per-layer checkpoints bound the re-backward's working set
+            x = checkpoint(lambda up, xin: _unit_forward(
+                up, xin, positions, cfg, False, 0)[0],
+                unit_params, x, use_reentrant=False)
+        else:
+            x, caches = _unit_forward(unit_params, x, positions, cfg,
+                                      collect_cache, max_len)
+            per_unit.append(caches)
     unit_caches = ()
     if collect_cache and cfg.num_units:
         unit_caches = tuple(

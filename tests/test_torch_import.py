@@ -54,6 +54,17 @@ def test_serving_modules_load_no_jax_alone(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.optim",
+                                    "repro_torch.checkpoint"])
+def test_training_modules_load_no_jax_alone(module):
+    """Each training entry point, imported on its own in a fresh process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

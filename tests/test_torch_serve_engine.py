@@ -52,13 +52,17 @@ from repro_torch.kernels.ops import Int8UpdateCodec
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import init_cache
 from repro_torch.models.cache import insert_slot_cache
+from repro_torch.checkpoint import save_pytree
 from repro_torch.serve import (
+    CKPT_RE,
     ChainParamSource,
+    CheckpointParamSource,
     FifoScheduler,
     Request,
     ServeEngine,
     SlotTable,
     VirtualClock,
+    checkpoint_name,
     make_poisson_trace,
 )
 from repro_torch.serve.engine import greedy_oracle
@@ -380,6 +384,85 @@ def test_int8_round_hot_swap(cfg, params):
     want = ravel_pytree(params)[0] + agg[:blobs[0]["d"]]
     got = ravel_pytree(chain.latest_model()[1])[0]
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_checkpoint_param_source_roundtrip(cfg, params, params1, tmp_path):
+    """Port of tests/test_serve_engine.py::
+    test_checkpoint_param_source_roundtrip: an f32 snapshot loads bit for
+    bit, the same round is not swapped twice, and an int8 chain blob
+    snapshot is decoded through the codec."""
+    src = CheckpointParamSource(str(tmp_path), start_round=0, device="cpu")
+    assert src.poll() is None
+
+    save_pytree(str(tmp_path / checkpoint_name(1)), params1)
+    ver, got = src.poll()
+    assert ver == 1
+    for a, b in zip(tree_leaves(got), tree_leaves(params1)):
+        assert torch.equal(a, b)
+    assert src.poll() is None                 # same round: no re-swap
+
+    # int8-codec chain blob snapshot: decoded through the codec
+    codec = Int8UpdateCodec(params)
+    blob = codec.encode(params1)
+    save_pytree(str(tmp_path / checkpoint_name(2)), blob)
+    src2 = CheckpointParamSource(str(tmp_path), codec=codec, start_round=1,
+                                 device="cpu")
+    ver, got = src2.poll()
+    assert ver == 2
+    for a, b in zip(tree_leaves(got), tree_leaves(codec.decode(blob))):
+        assert torch.equal(a, b)
+    assert CKPT_RE.match("model_round_12.msgpack")
+    assert not CKPT_RE.match("model_round_12.msgpack.tmp")
+
+
+def test_checkpoint_source_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CheckpointParamSource(str(tmp_path))
+
+
+def test_checkpoint_hot_swaps(cfg, params, params1, tmp_path):
+    """chip_smoke.py's serve_checkpoint at this size: round 1 (an f32
+    snapshot) appears in the watched directory at one tick and round 2 (an
+    int8 blob of the same params) at a later one; the engine swaps to
+    each in turn, drops nothing, and every request decoded wholly under
+    one version equals that version's oracle."""
+    trace = _swap_trace(cfg)
+    codec = Int8UpdateCodec(params)
+    blob = codec.encode(params1)
+    v2 = codec.decode(blob)
+    ticks = {SWAP_TICK: (1, params1), SWAP_TICK + 4: (2, blob)}
+
+    def write(tick):
+        if tick in ticks:
+            round_t, tree = ticks[tick]
+            save_pytree(str(tmp_path / checkpoint_name(round_t)), tree)
+
+    src = CheckpointParamSource(str(tmp_path), codec=codec, start_round=0,
+                                device="cpu")
+    eng = ServeEngine(cfg, params, num_slots=2, max_len=MAX_LEN,
+                      param_source=src, device="cpu")
+    rep = eng.run(trace, policy="continuous", clock=VirtualClock(),
+                  on_tick=write)
+    assert [(s["round"], s["tick"]) for s in rep.swaps] == [
+        (1, SWAP_TICK), (2, SWAP_TICK + 4)]
+    by = rep.by_rid()
+    for req in trace:
+        assert len(by[req.rid].tokens) == req.max_new
+    versions = {0: params, 1: params1, 2: v2}
+    for req in trace:
+        res = by[req.rid]
+        if not res.spans_swap:
+            assert oracles_hold(cfg, versions[res.version_admitted], res, req,
+                                2)
+    assert by[0].version_finished == 0 and by[2].version_admitted == 2
+    assert by[1].spans_swap
+    v0_tokens = greedy_oracle(cfg, params, trace[1].prompt, 24,
+                              max_len=MAX_LEN)
+    assert by[1].tokens[:4] == v0_tokens[:4]
+    for a, b in zip(tree_leaves(eng.params), tree_leaves(v2)):
+        assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------------
