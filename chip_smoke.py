@@ -82,6 +82,34 @@ Phases, one JSON line each:
                     tiered path train_dispatch[1] before validate_finalize[0]
                     (the ``order`` line); ``round_pair`` lines put both
                     schedules' round times side by side
+           sharded_int8, sharded_int8_committee  world 1 under NCCL in
+                    this process (a FileStore group, destroyed after):
+                    build_runtime(..., mesh=make_round_mesh(1)) on the int8
+                    config (the committee path with committee_int8_sharded),
+                    2 rounds each after a flat twin of the same seed and
+                    init: RoundLogs, committees, every chain block and the
+                    params bit for bit, verify() and the read-back on both,
+                    launch counts equal (``sharded_twin``)
+           sharded_world2  world 2 under gloo: two ranks spawned by
+                    repro_torch.hostdevices.spawn_world, both on cuda:0
+                    (NCCL refuses two ranks on one GPU; an exclusive
+                    compute mode stops the script), run
+                    sharded_int8_committee, sharded_int8 and
+                    sharded_async_int8 for 2 rounds each: every rank's
+                    chain equal to rank 0's bit for bit, verify(), the
+                    committed model equal to the old one plus the plain
+                    fused fedavg of the stored blobs, blobs
+                    padded_dim_sharded(d, 2) lanes wide and equal to one
+                    quantize of the whole packed stack, every D-slice
+                    (quantize_stack, fused_agg) and P-block
+                    (quantize_stack) bit for bit its plain version
+                    (ShardSpies, whose CPU checks are inside the pack,
+                    aggregate and validate timings), async equal to its
+                    sequential twin; ``world2_vs_world1`` sets the
+                    committee path against world 1's round by round; the
+                    ranks' launches are summed into ``kernels``;
+                    ``kernel_path`` lines time #2 and #4 on each rank's
+                    (8, 215,040) slice
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -1445,6 +1473,582 @@ def path_async(ds, path: str):
     return counted(path, drive, {k: 2 * v for k, v in exact.items()})
 
 
+# the sharded paths (build_runtime(..., mesh=make_round_mesh(n))) on the
+# int8 config: world 1 under NCCL in this process, each against its flat
+# twin; world 2 under gloo in two spawned ranks that share the card (NCCL
+# refuses two ranks on one GPU)
+ROUNDS_SHARDED = 2
+INT8_CFG = {"quantize_chain": True, "use_kernels": True}
+SHARDED_W1 = {"sharded_int8": None,
+              "sharded_int8_committee": "committee_int8_sharded"}
+# world-2 path -> (validator, schedule); sharded_int8 is the async one's
+# sequential twin
+SHARDED_W2 = {"sharded_int8_committee": ("committee_int8_sharded",
+                                         "sequential"),
+              "sharded_int8": (None, "sequential"),
+              "sharded_async_int8": (None, "async")}
+
+
+def chain_digests(chain) -> list:
+    """SHA-256 a block of its hash and its raw payload's leaves (dtype,
+    shape, bytes): equal lists, chains equal bit for bit."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_paths
+
+    out = []
+    for b in chain.blocks:
+        h = hashlib.sha256(b.hash.encode())
+        for path, leaf in tree_paths(chain.raw_payload(b)):
+            a = torch.as_tensor(leaf).cpu()
+            h.update(f"{path}|{a.dtype}|{tuple(a.shape)}".encode())
+            h.update(a.contiguous().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def int8_replay(rt, t: int):
+    """Round t's committed model against the old model plus the plain
+    fused fedavg of the round's blobs as stored on the chain: (bit for
+    bit, the blobs' width)."""
+    import torch
+
+    from repro_torch.core.aggregation import apply_update, normalize_weights
+    from repro_torch.kernels.fused_agg import fused_agg_ref
+    from repro_torch.tree import ravel_pytree
+
+    blocks = rt.chain.updates_at_round(t)
+    blobs = rt.chain.update_payloads_at_round(t, decode=False)
+    q = torch.stack([b["q"] for b in blobs]).cpu()
+    s = torch.stack([b["scales"] for b in blobs]).cpu()
+    w = normalize_weights(len(blocks), [b.score for b in blocks], rt.device)
+    plain = fused_agg_ref(q, s, w.cpu(), "fedavg")
+    old = rt.chain.model_at_round(t)
+    flat_old, unravel = ravel_pytree(old)
+    agg = plain[:blobs[0]["d"]].to(flat_old.device)
+    replay = ravel_pytree(apply_update(old, unravel(agg)))[0]
+    new = ravel_pytree(rt.chain.model_at_round(t + 1))[0]
+    return same_bits(replay, new), int(q.shape[1])
+
+
+def round_products(rt) -> dict:
+    """Each round's packed uploader ids, stored blobs' q and committed
+    model (on the host), to compare runtimes across processes."""
+    import torch
+
+    from repro_torch.tree import ravel_pytree
+
+    rounds = range(len(rt.logs))
+    return {"packed": [[b.uploader for b in rt.chain.updates_at_round(t)]
+                       for t in rounds],
+            "q": [torch.stack([b["q"] for b in rt.chain.update_payloads_at_round(
+                t, decode=False)]).cpu() for t in rounds],
+            "models": [ravel_pytree(rt.chain.model_at_round(t + 1))[0].cpu()
+                       for t in rounds]}
+
+
+def sharded_init():
+    """The sharded paths' initial params (numpy, so a spawned rank gets
+    them by value): the port's init from seed 0."""
+    import torch
+
+    from repro_torch.convert import to_numpy_tree
+    from repro_torch.fl.adapter import femnist_adapter
+
+    return to_numpy_tree(femnist_adapter(width=32).init(
+        torch.Generator().manual_seed(0)))
+
+
+def path_sharded_world1(ds, init) -> dict:
+    """(a) World 1 under NCCL, in this process (the group from a FileStore):
+    sharded_int8 and sharded_int8_committee, 2 rounds each, each after its
+    flat twin (no mesh; committee_int8 for committee_int8_sharded) from the
+    same seed and init.  Checked: RoundLogs, committees, every chain block
+    (headers, hashes, payload leaves bit for bit: the packed ids and
+    blobs), the params bit for bit, verify() and the int8 read-back on
+    both, launch counts equal to the twin's.  The group is destroyed after.
+    Returns path -> counts (twins under ``<path>_twin``) and the world-1
+    committee path's logs and params for (b)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_round_mesh
+    from repro_torch.tree import tree_leaves
+
+    out, rts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_round_mesh(1, device="cuda:0")
+            emit(phase="mesh", path="sharded_world1", mesh=repr(mesh))
+            for path, validator in SHARDED_W1.items():
+                committees = {}
+                for name, m, v in ((f"{path}_twin", None,
+                                    validator and validator.replace(
+                                        "_sharded", "")),
+                                   (path, mesh, validator)):
+                    def drive(name=name, m=m, v=v):
+                        rt = build(ds, INT8_CFG,
+                                   stages={"validator": v} if v else None,
+                                   mesh=m, initial_params=init)
+                        committees[name] = []
+                        for _ in range(ROUNDS_SHARDED):
+                            run_rounds(name, rt, 1)
+                            committees[name].append(list(rt.committee))
+                        verify(name, rt, ROUNDS_SHARDED)
+                        readback(name, rt, ROUNDS_SHARDED)
+                        return rt
+
+                    out[name], rts[name] = counted(
+                        name, drive, {"quantize_stack": ROUNDS_SHARDED,
+                                      "fused_agg": ROUNDS_SHARDED})
+                twin, sh = rts[f"{path}_twin"], rts[path]
+                diff = chains_equal(twin, sh)
+                params_equal = all(same_bits(x, y) for x, y in zip(
+                    tree_leaves(twin.global_params()),
+                    tree_leaves(sh.global_params())))
+                emit(phase="sharded_twin", path=path, world=1, backend="nccl",
+                     logs_equal=twin.logs == sh.logs,
+                     committees_equal=(committees[f"{path}_twin"]
+                                       == committees[path]),
+                     chain_diff=diff, params_equal=params_equal,
+                     launches={n: {k: v for k, v in out[n].items() if v}
+                               for n in (f"{path}_twin", path)})
+                check(twin.logs == sh.logs, f"{path}: RoundLogs differ")
+                check(committees[f"{path}_twin"] == committees[path],
+                      f"{path}: committees differ")
+                check(diff == {"blocks": 0, "leaves": 0, "max_abs_err": 0.0},
+                      f"{path}: chain differs from the flat twin's: {diff}")
+                check(params_equal, f"{path}: params differ from the twin's")
+                check(out[f"{path}_twin"] == out[path],
+                      f"{path}: launches {out[path]} differ from the twin's "
+                      f"{out[f'{path}_twin']}")
+        finally:
+            dist.destroy_process_group()
+    w1 = rts["sharded_int8_committee"]
+    return out, {"logs": w1.logs, **round_products(w1)}
+
+
+class ShardSpies:
+    """Wraps a runtime's sharded programs, its packer and the int8
+    scorer's candidate builder, and keeps each call's rank-local inputs
+    and outputs; ``settle()``, run after a timed round, holds them against
+    the plain versions on CPU copies of the same inputs, bit for bit:
+    quantize_stack (#2) on the packer's D-slice and on the int8 scorer's
+    P-block, fused_candidates (#5) on that P-block, fused_agg (#4) on the
+    aggregator's D-slice; and the packer's gathered blobs (the sharded
+    width) against one quantize of the whole packed stack.  Inside a
+    round the spies only keep references, so the round's time is the
+    engine's.  ``train_in`` keeps the first training call's inputs and
+    block for ``train_witness``.  ``remove()`` restores the candidate
+    builder."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.calls = dict.fromkeys(("quantize_dslice", "quantize_pblock",
+                                    "candidates_pblock", "fused_agg_dslice",
+                                    "packed_stack"), 0)
+        self.last = {}
+        self.pending = []
+        self.train_in = None
+        self._candidates_orig = None
+
+    def install(self, rt) -> None:
+        from repro_torch.fl import client
+
+        if rt._sharded_quantize is not None:
+            rt._sharded_quantize = self._quantize(rt._sharded_quantize)
+            rt._sharded_agg = self._aggregate(rt._sharded_agg)
+            rt._sharded_int8_score = self._int8_score(rt._sharded_int8_score)
+        rt._sharded_train = self._train(rt._sharded_train)
+        rt.pipeline.packer = self._packer(rt.pipeline.packer)
+        # the int8 scorer looks its candidate builder up in its module
+        self._candidates_orig = client.candidates_from_quantized
+        client.candidates_from_quantized = self._candidates(
+            self._candidates_orig)
+
+    def remove(self) -> None:
+        from repro_torch.fl import client
+
+        if self._candidates_orig is not None:
+            client.candidates_from_quantized = self._candidates_orig
+
+    def settle(self) -> None:
+        for name, held in self.pending:
+            held()
+            self.calls[name] += 1
+        self.pending.clear()
+
+    def _train(self, fn):
+        def run(params, xs, ys):
+            block = fn(params, xs, ys)
+            if self.train_in is None:
+                self.train_in = (params, xs, ys, block)
+            return block
+
+        return run
+
+    def _quantize(self, fn):
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.ops import padded_dim_sharded
+        from repro_torch.kernels.quantize import quantize_stack_ref
+
+        def run(stack):
+            q, s = fn(stack)
+
+            def held():
+                d = stack.shape[1]
+                padded = F.pad(stack, (0, padded_dim_sharded(
+                    d, self.mesh.size) - d))
+                pq, ps = quantize_stack_ref(self.mesh.shard(padded, 1).cpu())
+                check(q.cpu().equal(pq) and same_bits(s, ps),
+                      "quantize_stack on a D-slice differs from the plain "
+                      "version")
+
+            self.pending.append(("quantize_dslice", held))
+            self.last["stack"] = stack
+            return q, s
+
+        return run
+
+    def _aggregate(self, fn):
+        from repro_torch.kernels.fused_agg import fused_agg_ref
+
+        def run(q, s, w):
+            out = fn(q, s, w)
+
+            def held():
+                plain = fused_agg_ref(self.mesh.shard(q, 1).cpu(),
+                                      self.mesh.shard(s, 1).cpu(), w.cpu())
+                check(same_bits(out, plain),
+                      "fused_agg on a D-slice differs from the plain version")
+
+            self.pending.append(("fused_agg_dslice", held))
+            self.last.update(q=q, s=s, w=w)
+            return out
+
+        return run
+
+    def _int8_score(self, fn):
+        from repro_torch.fl.client import flatten_stacked_updates
+        from repro_torch.kernels.ops import _pad_to_block
+        from repro_torch.kernels.quantize import quantize_stack_ref
+
+        def run(params, block, vx, vy):
+            scores, q, s = fn(params, block, vx, vy)
+
+            def held():
+                pq, ps = quantize_stack_ref(
+                    _pad_to_block(flatten_stacked_updates(block))[0].cpu())
+                check(q.cpu().equal(pq) and same_bits(s, ps),
+                      "quantize_stack on a P-block differs from the plain "
+                      "version")
+
+            self.pending.append(("quantize_pblock", held))
+            return scores, q, s
+
+        return run
+
+    def _candidates(self, fn):
+        import torch
+
+        from repro_torch.kernels.fused_score import fused_candidates_ref
+        from repro_torch.kernels.ops import _pad_to_block
+
+        def run(base, q, s, D=None):
+            out = fn(base, q, s, D)
+
+            def held():
+                padded = _pad_to_block(base.to(torch.float32))[0].cpu()
+                plain = fused_candidates_ref(padded, q.cpu(), s.cpu())
+                check(same_bits(out, plain[:, :out.shape[1]]),
+                      f"fused_candidates on a P-block {tuple(q.shape)} "
+                      f"differs from the plain version")
+
+            self.pending.append(("candidates_pblock", held))
+            return out
+
+        return run
+
+    def _packer(self, packer):
+        import torch.nn.functional as F
+
+        from repro_torch.core.aggregation import flatten_updates
+        from repro_torch.kernels.ops import padded_dim_sharded
+        from repro_torch.kernels.quantize import quantize_stack_ref
+
+        def run(ctx):
+            packer(ctx)
+            q, s, d, _ = ctx.packed_quantized
+            packed = ctx.packed_updates
+
+            def held():
+                width = padded_dim_sharded(d, self.mesh.size)
+                stack, _ = flatten_updates(packed)
+                pq, ps = quantize_stack_ref(F.pad(stack, (0, width - d)).cpu())
+                check(q.shape[1] == width, f"blobs {q.shape[1]} lanes wide, "
+                                           f"want {width}")
+                check(q.cpu().equal(pq) and same_bits(s, ps),
+                      "packed blobs differ from one quantize of the whole "
+                      "stack")
+
+            self.pending.append(("packed_stack", held))
+
+        return run
+
+
+def train_witness(rt, mesh, train_in) -> dict:
+    """Round 0's local training on the card three ways, from the inputs
+    the sharded trainer got: its block (the rank's 27 clients), the
+    single-device program on those 27 clients' batches, and the same
+    program on all 54 clients (world 1's and the flat round's program),
+    cut to the rank's rows.  The first two must be equal bit for bit (the
+    sharded program is the 27-client program); whether the last two are
+    says whether the card's training arithmetic depends on how many
+    clients share a batched call, which world 2 against world 1 turns
+    on."""
+    from repro_torch.device import to_device
+    from repro_torch.fl.client import flatten_stacked_updates
+    from repro_torch.launch.shardings import round_engine_pspecs
+
+    params, xs, ys, block = train_in
+    split = round_engine_pspecs()["clients"]
+
+    def train(x, y):
+        return flatten_stacked_updates(rt._local_train(
+            params, to_device(x, mesh.device), to_device(y, mesh.device)))
+
+    sharded = flatten_stacked_updates(block)
+    half = train(mesh.shard(xs, split), mesh.shard(ys, split))
+    full = mesh.shard(train(xs, ys), split)
+    rows = (full != half).any(dim=1)
+    out = {"clients": int(xs.shape[0]), "rank_clients": int(half.shape[0]),
+           "sharded_equals_rank_program": same_bits(sharded, half),
+           "rank_program_equals_full_rows": same_bits(full, half),
+           "rows_differing": int(rows.sum()),
+           "max_abs_diff": float((full - half).abs().max())}
+    check(out["sharded_equals_rank_program"],
+          f"rank {mesh.rank}: the sharded trainer's block differs from the "
+          f"single-device program on the rank's clients")
+    return out
+
+
+def time_shard_kernels(mesh, last, launches: dict) -> list:
+    """#2 and #4 on this rank's slice of the last round's packed stack, by
+    CUDA events; the ranks take turns (a barrier between), so the other
+    rank's process shares the card but waits.  ``launches``: this rank's
+    D-slice launches of each over the world-2 paths."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_agg import fused_agg_kernel
+    from repro_torch.kernels.ops import padded_dim_sharded
+    from repro_torch.kernels.quantize import quantize_stack_kernel
+    from repro_torch.kernels.tiling import BLOCK_D
+
+    stack = last["stack"]
+    d = stack.shape[1]
+    padded = F.pad(stack, (0, padded_dim_sharded(d, mesh.size) - d))
+    x = mesh.shard(padded, 1).contiguous()
+    q = mesh.shard(last["q"], 1).contiguous()
+    s = mesh.shard(last["s"], 1).contiguous()
+    w = last["w"]
+    K, Dpad = q.shape
+    nblk = Dpad // BLOCK_D
+    f32, i8 = 4, 1
+    lines = []
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            for name, fn, nbytes, ops_ in (
+                    ("quantize_stack", lambda: quantize_stack_kernel(x),
+                     K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad),
+                    ("fused_agg", lambda: fused_agg_kernel(q, s, w),
+                     K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32,
+                     4 * K * Dpad)):
+                b_ms, b_by = bound_ms(nbytes, ops_)
+                lines.append(dict(name=name, rank=mesh.rank, shape=[K, Dpad],
+                                  launches=launches[name], ms=time_ms(fn),
+                                  bound_ms=b_ms, bound_by=b_by))
+        dist.barrier()
+    return lines
+
+
+def sharded_rank(init) -> dict:
+    """(b) One rank of world 2 on the one card (gloo, cuda:0), spawned by
+    ``spawn_world``: the SHARDED_W2 paths, 2 rounds each, with the launch
+    counts set to 0 before each and read after, ShardSpies on every
+    sharded program (their checks run after each timed round), verify(),
+    the committed model against the plain replay of the stored blobs;
+    then the training witness on the committee path's round 0 and the
+    shard-shape kernel times.  Returns host data only."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import make_femnist_like
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import padded_dim_sharded
+    from repro_torch.launch.mesh import make_round_mesh
+    from repro_torch.tree import ravel_pytree
+
+    mesh = make_round_mesh(device="cuda:0")
+    ds = make_femnist_like(seed=1)
+    out = {"rank": mesh.rank, "mesh": repr(mesh), "paths": {}}
+    last, dslices = None, {"quantize_stack": 0, "fused_agg": 0}
+    for path, (validator, schedule) in SHARDED_W2.items():
+        spies = ShardSpies(mesh)
+        reset_launch_counts()
+        rt = build(ds, INT8_CFG,
+                   stages={"validator": validator} if validator else None,
+                   mesh=mesh, schedule=schedule, initial_params=init)
+        spies.install(rt)
+        rounds, committees = [], []
+        try:
+            for _ in range(ROUNDS_SHARDED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                log = rt.run_round()
+                torch.cuda.synchronize()
+                rounds.append({"seconds": time.perf_counter() - t0,
+                               "timings": rt.stage_timings[-1],
+                               "log": dataclasses.asdict(log)})
+                committees.append(list(rt.committee))
+                spies.settle()
+        finally:
+            spies.remove()
+        counts = launch_counts()
+        exact, width = int8_replay(rt, ROUNDS_SHARDED - 1)
+        d = rt.chain.codec.dim
+        check(rt.chain.verify(), f"{path}: chain.verify() on rank {mesh.rank}")
+        check(exact, f"{path}: committed model differs from the plain replay")
+        check(width == padded_dim_sharded(d, mesh.size),
+              f"{path}: blobs {width} lanes wide")
+        held = spies.calls
+        # one P-block a scored cohort: at least one a round on the int8
+        # committee path, none elsewhere
+        pblocks = held["candidates_pblock"]
+        check(held["packed_stack"] == ROUNDS_SHARDED
+              and held["fused_agg_dslice"] == ROUNDS_SHARDED
+              and held["quantize_pblock"] == pblocks
+              and (pblocks >= ROUNDS_SHARDED
+                   if validator == "committee_int8_sharded" else pblocks == 0),
+              f"{path}: spies saw {held}")
+        # every launch of #2, #4 and #5 on the path was held
+        check(counts["quantize_stack"] == (held["quantize_dslice"]
+                                           + held["quantize_pblock"])
+              and counts["fused_agg"] == held["fused_agg_dslice"]
+              and counts["fused_candidates"] == pblocks,
+              f"{path}: launches {counts} against the spies' {held}")
+        if spies.last.get("stack") is not None:
+            last = spies.last
+        out["paths"][path] = {
+            "launches": counts, "rounds": rounds, "committees": committees,
+            "logs": [r["log"] for r in rounds], "digests": chain_digests(rt.chain),
+            "params": ravel_pytree(rt.global_params())[0].cpu(),
+            "spies": spies.calls, "replay_exact": exact, "width": width,
+            "dim": d, **round_products(rt)}
+        if path == "sharded_int8_committee":
+            out["train_witness"] = train_witness(rt, mesh, spies.train_in)
+        dslices["quantize_stack"] += spies.calls["quantize_dslice"]
+        dslices["fused_agg"] += spies.calls["fused_agg_dslice"]
+        del rt, spies
+    check(last is not None, "no path quantized a D-slice")
+    out["kernel_paths"] = time_shard_kernels(mesh, last, dslices)
+    return out
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def path_sharded_world2(init, world1) -> dict:
+    """(b) World 2 on the one card under gloo: two ranks spawned through
+    ``repro_torch.hostdevices.spawn_world``, each on cuda:0 (NCCL refuses
+    two ranks on one GPU).  Checked here, over the ranks' returns: every
+    rank's chain equal to rank 0's bit for bit (with its logs and
+    committees), the async path equal to its sequential twin bit for bit
+    (chain, logs, committees, params); each rank checked its own slices,
+    replay and widths (``sharded_rank``).  Prints the world-2 committee
+    path against world 1's (``world1``).  An exclusive compute mode stops
+    the script: two ranks cannot share the card then.  Returns path ->
+    launch counts summed over the ranks."""
+    import dataclasses
+
+    from repro_torch.hostdevices import spawn_world
+
+    mode = compute_mode()
+    emit(phase="compute_mode", mode=mode)
+    check(mode == "Default", f"the card is in compute mode {mode!r}: two "
+                             f"ranks cannot share it, so world 2 cannot run")
+    ranks = spawn_world(2, sharded_rank, init, backend="gloo", timeout=900.0)
+    out = {}
+    for path in SHARDED_W2:
+        res = [r["paths"][path] for r in ranks]
+        for r in ranks:
+            for t, rd in enumerate(r["paths"][path]["rounds"]):
+                emit(phase="round", path=path, rank=r["rank"], round=t,
+                     seconds=rd["seconds"], timings=rd["timings"],
+                     log=rd["log"])
+        counts = {k: sum(x["launches"][k] for x in res)
+                  for k in res[0]["launches"]}
+        emit(phase="launches", path=path, launches=counts,
+             per_rank=[{k: v for k, v in x["launches"].items() if v}
+                       for x in res], spies=[x["spies"] for x in res],
+             width=res[0]["width"], dim=res[0]["dim"])
+        for x in res[1:]:
+            check(x["digests"] == res[0]["digests"],
+                  f"{path}: rank chains differ")
+            check(x["logs"] == res[0]["logs"]
+                  and x["committees"] == res[0]["committees"],
+                  f"{path}: rank logs or committees differ")
+        check(counts["quantize_stack"] >= ROUNDS_SHARDED
+              and counts["fused_agg"] >= ROUNDS_SHARDED,
+              f"{path}: launches {counts}")
+        out[path] = counts
+    seq, asy = (ranks[0]["paths"][p] for p in ("sharded_int8",
+                                               "sharded_async_int8"))
+    twin = {"chain_equal": seq["digests"] == asy["digests"],
+            "logs_equal": seq["logs"] == asy["logs"],
+            "committees_equal": seq["committees"] == asy["committees"],
+            "params_equal": same_bits(seq["params"], asy["params"])}
+    emit(phase="async_twin", path="sharded_async_int8", world=2, **twin)
+    check(all(twin.values()), f"sharded_async_int8 differs from its "
+                              f"sequential twin: {twin}")
+    w2 = ranks[0]["paths"]["sharded_int8_committee"]
+    logs1 = [dataclasses.asdict(l) for l in world1["logs"]]
+    emit(phase="world2_vs_world1", path="sharded_int8_committee",
+         logs_equal=logs1 == w2["logs"],
+         rounds=[{"round": t, "log_equal": logs1[t] == w2["logs"][t],
+                  "packed_equal": world1["packed"][t] == w2["packed"][t],
+                  "blob_q_max_steps": int((world1["q"][t].int()
+                                           - w2["q"][t].int()).abs().max())
+                  if world1["packed"][t] == w2["packed"][t] else None,
+                  "model_max_abs_diff": float(
+                      (world1["models"][t] - w2["models"][t]).abs().max()),
+                  "model_equal": same_bits(world1["models"][t],
+                                           w2["models"][t])}
+                 for t in range(ROUNDS_SHARDED)])
+    for r in ranks:
+        emit(phase="train_witness", path="sharded_int8_committee",
+             rank=r["rank"], **r["train_witness"])
+    for r in ranks:
+        for line in r["kernel_paths"]:
+            emit(phase="kernel_path", path="sharded_world2", **line,
+                 note="the other rank's process shares the card, waiting "
+                      "at a barrier")
+    return out
+
+
 def path_baselines(ds) -> None:
     """The committee-free baselines at full width through
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
@@ -2792,8 +3396,20 @@ def main(argv) -> int:
         paths[name] = path_tiered(ds, name)
     for name in ASYNC_PATHS:
         paths[name] = path_async(ds, name)
-    path_baselines(ds)
     later = {}
+    init = sharded_init()
+    t0 = time.perf_counter()
+    world1_counts, world1 = path_sharded_world1(ds, init)
+    later.update(world1_counts)
+    emit(phase="path_seconds", path="sharded_world1",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    # world 2 runs paths of world 1's names: keep both counts
+    later.update({f"{path}_world2": counts for path, counts
+                  in path_sharded_world2(init, world1).items()})
+    emit(phase="path_seconds", path="sharded_world2",
+         seconds=time.perf_counter() - t0)
+    path_baselines(ds)
     t0 = time.perf_counter()
     later["serve_olmo_1b"] = path_serve_olmo_1b()
     emit(phase="path_seconds", path="serve_olmo_1b",

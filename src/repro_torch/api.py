@@ -67,9 +67,24 @@ def build_runtime(
     ``stage_timings``.
 
     ``initial_params`` warm-starts the model (a dict of tensors or numpy
-    arrays with the reference's keys and layouts).  ``tiers=S > 1`` runs
-    the two-tier round of ``repro_torch.fl.hier`` (S sub-communities, then
-    a second-level committee round); ``tiers=1`` is the flat round.
+    arrays with the reference's keys and layouts).
+
+    ``mesh`` (``repro_torch.launch.mesh.make_round_mesh(n)``, on each of
+    the n ranks of a process group) selects the sharded round engine
+    (``repro_torch.fl.sharded``): every rank runs the same host pipeline
+    from the same seed, while local training AND committee validation
+    split the cohort's clients over the ranks (``local_sgd_sharded`` /
+    ``committee_sharded``: the P x Q score matrix is computed in P-blocks
+    and gathered, equal to the single-device scores), and with
+    ``quantize_chain=True`` packing and aggregation run D-sharded
+    (``top_k_int8_sharded`` / ``fused_int8_sharded``) and the fused
+    score-from-int8 validators (``committee_int8`` /
+    ``committee_int8_sharded``) become available.  ``stages`` still
+    overrides any stage by name or callable.
+
+    ``tiers=S > 1`` runs the two-tier round of ``repro_torch.fl.hier`` (S
+    sub-communities, then a second-level committee round); ``tiers=1`` is
+    the flat round.
 
     ``schedule="async"`` runs the same stages under the asynchronous round
     engine (``repro_torch.fl.async_engine``): each cohort's training is
@@ -78,8 +93,7 @@ def build_runtime(
     sub-aggregates).  Host rng draws and chain appends keep the sequential
     order, so the results are held bit-identical to
     ``schedule="sequential"``: the same RoundLogs, committees, chain
-    payloads and params.  ``mesh`` (the reference's sharded engine) raises
-    ``NotImplementedError`` until ported."""
+    payloads and params."""
     cfg = build_config(cfg, baseline=baseline)
     if tiers is not None:
         if isinstance(cfg, FLConfig):

@@ -22,6 +22,9 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
+    """``device`` checked and set up.  A numbered card (``"cuda:<i>"``, a
+    rank's device) becomes the process's current CUDA device, because the
+    kernels launch on the current device's stream."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,6 +32,11 @@ def resolve_device(device="cuda") -> torch.device:
                 "CUDA is not available; pass device='cpu' to run the port "
                 "on the CPU"
             )
+        if dev.index is not None:
+            if dev.index >= torch.cuda.device_count():
+                raise ValueError(f"device {dev}: only "
+                                 f"{torch.cuda.device_count()} CUDA devices")
+            torch.cuda.set_device(dev)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     elif dev.type != "cpu":

@@ -11,6 +11,10 @@ from repro_torch.fl.pipeline import (
     register,
 )
 from repro_torch.fl.runtime import BFLCConfig, BFLCRuntime, RoundLog
+# registers the sharded engine's stages (local_sgd_sharded,
+# committee_sharded, committee_int8_sharded, top_k_int8_sharded,
+# fused_int8_sharded)
+from repro_torch.fl import sharded  # noqa: F401
 
 __all__ = [
     "ModelAdapter",

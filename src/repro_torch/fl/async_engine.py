@@ -54,6 +54,12 @@ Design
   the reward node.  Each node's host time goes into ``ctx.timings``
   under the sequential engine's ``STAGE_TIMING_KEYS``; device time that
   overlaps lands in whichever bucket waited for it.
+* **Ranks.**  With a mesh (``repro_torch.fl.sharded``) the sharded
+  trainer's dispatch / finalize are ring nodes like any other, and its
+  finalize and the sharded validators' dispatch gather over the ranks.
+  The node order depends on the graph alone, never on timing, and every
+  rank builds the same graph from the same seed, so the ranks' collectives
+  pair up in order.
 * **Failure.**  A node that raises aborts the run at once: no tail node
   has run, so nothing was appended to the chain, and the next cohort's
   queued device work is abandoned.

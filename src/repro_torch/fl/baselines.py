@@ -10,8 +10,9 @@ with the plain reductions, as the reference's do.
 
 Both entry points run on ``device`` ("cuda" by default; they raise when
 CUDA is absent unless ``device="cpu"``).  ``FLTrainer`` takes
-``schedule="async"`` (``repro_torch.fl.async_engine``); ``mesh=`` raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``schedule="async"`` (``repro_torch.fl.async_engine``) and
+``mesh=make_round_mesh(n)``, which trains each cohort with the sharded
+trainer (``repro_torch.fl.sharded``).
 """
 from __future__ import annotations
 
@@ -26,13 +27,17 @@ from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.fl.async_engine import AsyncRoundPipeline
-from repro_torch.fl.client import make_eval_fn, make_local_train_fn
+from repro_torch.fl.client import (
+    make_eval_fn,
+    make_local_train_fn,
+    make_sharded_local_train_fn,
+)
 from repro_torch.fl.pipeline import (
     RoundContext,
     baseline_stage_names,
     build_pipeline,
 )
-from repro_torch.fl.runtime import check_schedule_and_mesh
+from repro_torch.fl.runtime import check_schedule_and_mesh, runtime_device
 from repro_torch.tree import tree_map
 
 
@@ -66,7 +71,7 @@ class FLTrainer:
                  stages: Optional[Dict[str, object]] = None, mesh=None,
                  schedule: str = "sequential", device="cuda"):
         check_schedule_and_mesh(mesh, schedule)
-        self.device = resolve_device(device)
+        self.device = runtime_device(device, mesh)
         self.adapter = adapter
         self.data = dataset
         self.cfg = cfg
@@ -82,7 +87,11 @@ class FLTrainer:
         self.params = _on_device(initial_params, self.device)
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
         self._eval = make_eval_fn(adapter, self.device)
-        self.pipeline = build_pipeline(baseline_stage_names(), stages,
+        self.mesh = mesh
+        self._sharded_train = (None if mesh is None else
+                               make_sharded_local_train_fn(
+                                   adapter, cfg.local_lr, mesh, cfg.momentum))
+        self.pipeline = build_pipeline(baseline_stage_names(mesh), stages,
                                        max_cohorts=1)
         self.schedule = schedule
         if schedule == "async":
@@ -105,6 +114,8 @@ class FLTrainer:
             device=self.device,
             malicious=self.malicious,
             local_train_fn=self._local_train,
+            mesh=self.mesh,
+            sharded_train_fn=self._sharded_train,
         )
         self.pipeline.run(ctx)
         self.params = ctx.new_params

@@ -8,6 +8,12 @@ vmapped function).  Committee validation scores the (P updates x Q
 members) accuracy matrix: each candidate ``params + update_i`` is built
 once and all Q member batches run through it in one batched forward.  The
 int8 scorer does the same for the chain codec's int8 view of each update.
+
+The sharded round engine (``repro_torch.fl.sharded``) runs these same
+programs on each rank's block of the cohort: ``make_sharded_*`` build
+them once per mesh.  A rank's per-client results are the single-device
+program's on the same rows, so the gathered stacks equal the
+single-device ones.
 """
 from __future__ import annotations
 
@@ -17,8 +23,10 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from repro_torch.device import to_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
+from repro_torch.launch.shardings import round_engine_pspecs
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
 
 
@@ -48,6 +56,27 @@ def make_local_train_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0)
     return vmap(make_one_client_fn(adapter, lr, momentum), in_dims=(None, 0, 0))
 
 
+def make_sharded_local_train_fn(adapter: ModelAdapter, lr: float, mesh,
+                                momentum: float = 0.0):
+    """The P-client batched program on this rank's block of clients.
+
+    ``train(params, xs, ys)``: xs (P, steps, batch, ...) and ys (P, steps,
+    batch) are the cohort's host batches, which every rank draws alike;
+    the rank copies only its block of clients (split as
+    ``round_engine_pspecs()["clients"]`` names) to ``mesh.device`` and
+    returns that block's update tree.  The caller pads P to a multiple of
+    the mesh size; clients are independent rows of the batched program,
+    so padded rows leave the real ones unchanged."""
+    batched = make_local_train_fn(adapter, lr, momentum)
+    split = round_engine_pspecs()["clients"]
+
+    def train(params, xs: np.ndarray, ys: np.ndarray):
+        return batched(params, to_device(mesh.shard(xs, split), mesh.device),
+                       to_device(mesh.shard(ys, split), mesh.device))
+
+    return train
+
+
 def make_score_matrix_fn(adapter: ModelAdapter):
     """Returns score(params, updates, val_x, val_y) -> (P, Q) accuracies.
 
@@ -68,6 +97,15 @@ def make_score_matrix_fn(adapter: ModelAdapter):
         return torch.stack(rows)
 
     return score
+
+
+# The P x Q score matrix on a rank's block of candidates: the sharded
+# validator passes the rank's P-block of the stacked updates
+# (``score_matrix_pspecs()["updates"]``) with params and member batches
+# whole, and gathers the block's rows.  Candidates are scored one at a
+# time, so a block's rows are the single-device program's: the reference's
+# name for the same program.
+make_sharded_score_matrix_fn = make_score_matrix_fn
 
 
 def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
@@ -92,6 +130,32 @@ def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
         scores = torch.stack([per_member(unravel(cands[i]), vx, vy)
                               for i in range(cands.shape[0])])
         return scores, q, s
+
+    return score
+
+
+def flatten_stacked_updates(stacked) -> torch.Tensor:
+    """A P-stacked update tree -> (P, D) f32, on the tree's device.
+
+    Leaves in ``tree_leaves`` order with each reshaped to (P, -1) give row
+    i equal to ``ravel_pytree(update_i)`` bit for bit, so the int8 scorer
+    reads the trainer's device-resident stack without unstacking it."""
+    return torch.cat([l.reshape(l.shape[0], -1).to(torch.float32)
+                      for l in tree_leaves(stacked)], dim=1)
+
+
+def make_sharded_score_from_int8_fn(adapter: ModelAdapter, unravel):
+    """The fused int8 scorer on this rank's block of candidates:
+    ``score(params, block, vx, vy)`` takes the rank's P-block of the
+    stacked update tree, flattens it in place (``flatten_stacked_updates``),
+    quantizes the rows and scores them as ``make_score_from_int8_fn``
+    does.  Returns the block's (scores, q, scales), each split on P
+    (``score_matrix_pspecs()``); tiles are row-local, so the rows equal the
+    single-device codec's.  The validator gathers all three."""
+    program = make_score_from_int8_fn(adapter, unravel)
+
+    def score(params, block, vx, vy):
+        return program(params, flatten_stacked_updates(block), vx, vy)
 
     return score
 

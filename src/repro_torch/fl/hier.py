@@ -1,6 +1,6 @@
 """Hierarchical committee rounds (paper §V's network-sharding scale-out).
 
-Port of ``repro/fl/hier.py`` for one device.  A tiered round splits the
+Port of ``repro/fl/hier.py``.  A tiered round splits the
 round's active non-committee nodes into S sub-communities, runs committee
 consensus inside each, and lets the round committee judge the S
 sub-results.  Three registered stages build it over the flat pipeline:
@@ -11,14 +11,16 @@ sub-results.  Three registered stages build it over the flat pipeline:
   pipeline's cohort loop becomes the streaming ingest loop.
 * ``validator = "hier"`` — per slice, swaps the round committee for the
   slice's sub-committee and delegates to an INNER validator (any
-  registered one: ``committee``, ``committee_int8``, ``accept_all``, ...).
+  registered one: ``committee``, ``committee_int8``, ``committee_sharded``,
+  ``committee_int8_sharded``, ``accept_all``, ...).
   After each slice it reduces the accepted updates to one sub-aggregate
   (on an int8 chain the fused kernel emits the chain-ready blob in one
   pass, ``aggregate_quantized(..., quantize_out=True)``) and then drops the
   slice's update stack, so the peak update-stack memory is bounded by the
   largest slice, never the whole round's.
 * ``packer = "hier"`` — the tier-2 committee round: the round committee
-  scores the S sub-aggregates with the tier-1 score program, runs
+  scores the S sub-aggregates with the tier-1 score program (sharded
+  over the ranks when a mesh is present), runs
   committee consensus over them (best first, so a poisoned sub-aggregate
   fails the relative threshold against the honest ones), packs the
   accepted sub-aggregates as the round's update blocks and appends the
@@ -26,9 +28,10 @@ sub-results.  Three registered stages build it over the flat pipeline:
   tiered chain layout requires.
 
 ``BFLCRuntime`` wires this up from ``cfg.tiers > 1``
-(``build_runtime(..., tiers=S)``); ``tiers=1`` is the flat pipeline.  The
-reference's multi-device branches (``ctx.mesh``) belong to the sharded
-rounds, which this port does not have yet (ROADMAP.md Queue 1 item 11).
+(``build_runtime(..., tiers=S)``); ``tiers=1`` is the flat pipeline.
+With a mesh the config's sharded trainer and aggregator run under the
+tiered stages, and the packer widens the staged int8 stack to the shard
+boundary.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.fl.pipeline import (
     register,
     resolve,
 )
+from repro_torch.fl.sharded import _pad_cached_to_shards, score_rows
 from repro_torch.tree import tree_leaves, tree_stack
 
 
@@ -335,10 +339,16 @@ register("validator", "hier")(HierValidator())
 # ----------------------------------------------------------------------
 def _tier2_scores(ctx: RoundContext, st: HierState) -> np.ndarray:
     """(S, Q2) accuracy matrix of the sub-aggregates on the round
-    committee's validation batches, by the tier-1 score program."""
+    committee's validation batches, by the tier-1 score program (each rank
+    scoring its block of them when a mesh is present)."""
+    stacked = tree_stack(st.sub_aggregates)
     n = len(st.sub_aggregates)
-    scores = ctx.score_matrix_fn(ctx.params, tree_stack(st.sub_aggregates),
-                                 st.val_x2, st.val_y2)
+    if ctx.mesh is not None:
+        scores = score_rows(ctx, ctx.sharded_score_fn, stacked, n,
+                            st.val_x2, st.val_y2)
+    else:
+        scores = ctx.score_matrix_fn(ctx.params, stacked, st.val_x2,
+                                     st.val_y2)
     return scores.cpu().numpy()[:n]
 
 
@@ -429,10 +439,12 @@ def pack_hier(ctx: RoundContext) -> None:
         q = torch.stack([st.sub_blobs[i]["q"] for i in packed_slices])
         s = torch.stack([st.sub_blobs[i]["scales"] for i in packed_slices])
         d = int(st.sub_blobs[packed_slices[0]]["d"])
+        if ctx.mesh is not None:
+            q, s = _pad_cached_to_shards(q, s, d, ctx.mesh.size)
         ctx.packed_quantized = (q, s, d, ctx.chain.codec.unravel)
 
 
-def build_hier_pipeline(cfg, overrides=None):
+def build_hier_pipeline(cfg, mesh=None, overrides=None):
     """The tiered stage set for a config: tiered sampler + hier validator
     + hier packer over the flat defaults, with the config's trainer and
     aggregator untouched.  A ``validator`` override selects the INNER
@@ -440,7 +452,7 @@ def build_hier_pipeline(cfg, overrides=None):
     usual.  Returns (pipeline, inner_validator): the runtime threads the
     inner validator to the hier stages through ``HierState``."""
     overrides = dict(overrides or {})
-    names = default_stage_names(cfg)
+    names = default_stage_names(cfg, mesh)
     inner_name = overrides.pop("validator", names["validator"])
     names.update({"sampler": "tiered", "validator": "hier",
                   "packer": "hier"})

@@ -1,6 +1,6 @@
 """Composable BFLC round pipeline (paper Fig. 1 as pluggable stages).
 
-Port of ``repro/fl/pipeline.py`` for the single-device round:
+Port of ``repro/fl/pipeline.py``:
 
 * ``RoundContext`` threads one round's state (params, cohort, score table,
   packed records, chain, host rng, per-stage timings) through the stages.
@@ -24,9 +24,10 @@ Registered here: the BFLC stages ``active``, ``local_sgd``,
 ``fused_int8``, ``by_candidates``, ``proportional``, and the baselines'
 no-op stages ``uniform``, ``accept_all``, ``all``, ``none`` (elector and
 rewarder).  ``repro_torch.fl.hier`` registers the two-tier round's
-``tiered`` sampler and ``hier`` validator and packer.  The reference's
-sharded stages are listed in ``NOT_PORTED`` and raise
-``NotImplementedError`` naming their ROADMAP item.
+``tiered`` sampler and ``hier`` validator and packer, and
+``repro_torch.fl.sharded`` the sharded engine's ``local_sgd_sharded``,
+``committee_sharded``, ``committee_int8_sharded``, ``top_k_int8_sharded``
+and ``fused_int8_sharded`` (``repro_torch.fl`` imports both).
 """
 from __future__ import annotations
 
@@ -79,6 +80,14 @@ class RoundContext:
     int8_score_fn: Any = None              # fused int8 scorer
     collusion: Any = None                  # CollusionPolicy
     malicious: Optional[Set[int]] = None   # baseline ground truth (no manager)
+    # sharded round engine (set when the runtime was built with a mesh;
+    # repro_torch.fl.sharded's stages consume these)
+    mesh: Any = None                       # RoundMesh (repro_torch.launch.mesh)
+    sharded_train_fn: Any = None           # local SGD on the rank's clients
+    sharded_quantize_fn: Any = None        # codec on the rank's D-slice
+    sharded_agg_fn: Any = None             # fused int8 reduction of the D-slice
+    sharded_score_fn: Any = None           # score rows of the rank's P-block
+    sharded_int8_score_fn: Any = None      # fused int8 scorer on the P-block
     # two-tier round state: a HierState, built per round by the runtime
     # when cfg.tiers > 1 (see repro_torch.fl.hier)
     hier: Any = None
@@ -91,7 +100,7 @@ class RoundContext:
     cohort: int = 0
     trainers: List[int] = field(default_factory=list)
     cohort_updates: List[Any] = field(default_factory=list)
-    cohort_stacked: Any = None             # a sharded trainer's stack (None here)
+    cohort_stacked: Any = None             # sharded trainer: the rank's P-block
     cohort_poisoned: List[int] = field(default_factory=list)
     cohort_scores: Any = None              # validator's (P, Q) scores, in flight
     train_inflight: Any = None             # trainer's dispatched update stack
@@ -155,17 +164,6 @@ STAGE_TIMING_KEYS = (
     "sample", "train", "validate", "pack", "aggregate", "elect", "reward",
 )
 
-# the reference's other registered stages, with the ROADMAP.md item that
-# ports them
-NOT_PORTED = {
-    "local_sgd_sharded": "Queue 1 item 11 (sharded rounds)",
-    "committee_sharded": "Queue 1 item 11 (sharded rounds)",
-    "committee_int8_sharded": "Queue 1 item 11 (sharded rounds)",
-    "top_k_int8_sharded": "Queue 1 item 11 (sharded rounds)",
-    "fused_int8_sharded": "Queue 1 item 11 (sharded rounds)",
-}
-
-
 def register(kind: str, name: str) -> Callable[[Stage], Stage]:
     """Decorator: ``@register("aggregator", "mine")`` adds a stage to its
     registry (re-registering a name overwrites)."""
@@ -186,10 +184,6 @@ def resolve(kind: str, impl) -> Stage:
     registry = REGISTRIES[kind]
     if impl in registry:
         return registry[impl]
-    if impl in NOT_PORTED:
-        raise NotImplementedError(
-            f"{kind} {impl!r} is not ported yet: ROADMAP.md {NOT_PORTED[impl]}"
-        )
     raise KeyError(f"no {kind} named {impl!r}; registered: {sorted(registry)}")
 
 
@@ -241,27 +235,39 @@ class RoundPipeline:
         return ctx
 
 
-def default_stage_names(cfg) -> Dict[str, str]:
+def default_stage_names(cfg, mesh=None) -> Dict[str, str]:
     """The BFLC wiring for a config: quantize_chain flips the packer +
-    aggregator pair to the fused int8 engine."""
+    aggregator pair to the fused int8 engine; a mesh flips local training
+    and committee validation (and, on an int8 chain, the packer +
+    aggregator) to the sharded engine (``repro_torch.fl.sharded``).  The
+    sharded validator scores f32 in every config; the int8-view scorers
+    (``committee_int8`` / ``committee_int8_sharded``) are opt-in through
+    ``stages=``, because int8 scoring noise moves median scores."""
     quantized = bool(getattr(cfg, "quantize_chain", False))
-    return {
+    sharded = mesh is not None
+    names = {
         "sampler": "active",
-        "local_trainer": "local_sgd",
-        "validator": "committee",
+        "local_trainer": "local_sgd_sharded" if sharded else "local_sgd",
+        "validator": "committee_sharded" if sharded else "committee",
         "packer": "top_k_int8" if quantized else "top_k",
         "aggregator": "fused_int8" if quantized else "pytree",
         "elector": "by_candidates",
         "rewarder": "proportional",
     }
+    if sharded and quantized:
+        names["packer"] = "top_k_int8_sharded"
+        names["aggregator"] = "fused_int8_sharded"
+    return names
 
 
-def baseline_stage_names() -> Dict[str, str]:
+def baseline_stage_names(mesh=None) -> Dict[str, str]:
     """Basic FL / CwMed: the same pipeline with every committee stage a
-    no-op, so one central aggregation over an unvalidated cohort."""
+    no-op, so one central aggregation over an unvalidated cohort (trained
+    by the sharded trainer when a mesh is given)."""
     return {
         "sampler": "uniform",
-        "local_trainer": "local_sgd",
+        "local_trainer": "local_sgd_sharded" if mesh is not None
+        else "local_sgd",
         "validator": "accept_all",
         "packer": "all",
         "aggregator": "pytree",
@@ -328,8 +334,8 @@ def sample_uniform(ctx: RoundContext) -> None:
     ctx.trainers = ctx.rng.choice(n, m, replace=False).tolist()
 
 
-def sample_cohort_batches(ctx: RoundContext):
-    """The cohort's stacked local batches on the device: (P, steps, b, ...),
+def draw_cohort_batches(ctx: RoundContext):
+    """The cohort's stacked local batches on the host: (P, steps, b, ...),
     (P, steps, b) — one host rng draw per trainer, in ``ctx.trainers``
     order, as the reference draws them."""
     cfg, rng = ctx.cfg, ctx.rng
@@ -340,8 +346,13 @@ def sample_cohort_batches(ctx: RoundContext):
         )
         for i in ctx.trainers
     ]
-    return (to_device(np.stack([p[0] for p in pairs]), ctx.device),
-            to_device(np.stack([p[1] for p in pairs]), ctx.device))
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def sample_cohort_batches(ctx: RoundContext):
+    """``draw_cohort_batches`` on the device."""
+    xs, ys = draw_cohort_batches(ctx)
+    return to_device(xs, ctx.device), to_device(ys, ctx.device)
 
 
 def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> List[int]:

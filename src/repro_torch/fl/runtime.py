@@ -1,7 +1,7 @@
 """The BFLC round loop (paper Fig. 1): chain + committee consensus +
 election + incentive.
 
-Port of ``repro/fl/runtime.py`` for one device.  Each
+Port of ``repro/fl/runtime.py``.  Each
 round (1) samples active nodes, (2) trains the trainers locally from the
 latest model block, (3) has the committee score every update on its own
 data (median over members) and packs the top-k qualified updates as update
@@ -16,8 +16,10 @@ seed gives the same cohorts, committees and poison in both packages.
 ``BFLCRuntime`` runs on ``device`` ("cuda" by default; it raises when CUDA
 is absent unless ``device="cpu"``).  ``schedule="async"`` runs the same
 stages under ``repro_torch.fl.async_engine``, bit-identical to the
-sequential engine.  ``mesh=`` (the sharded rounds) is not ported yet and
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+sequential engine.  ``mesh=make_round_mesh(n)`` runs the sharded engine
+of ``repro_torch.fl.sharded`` on each of the n ranks: every rank builds
+the same runtime from the same seed, and the device work is split over
+the ranks.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ from repro_torch.fl.client import (
     make_local_train_fn,
     make_score_from_int8_fn,
     make_score_matrix_fn,
+    make_sharded_local_train_fn,
+    make_sharded_score_from_int8_fn,
+    make_sharded_score_matrix_fn,
 )
 from repro_torch.fl.hier import HierState, build_hier_pipeline
 from repro_torch.fl.pipeline import (
@@ -48,6 +53,11 @@ from repro_torch.fl.pipeline import (
     default_stage_names,
     fill_committee,
 )
+from repro_torch.kernels.ops import (
+    make_aggregate_quantized_sharded,
+    make_quantize_stack_sharded,
+)
+from repro_torch.launch.mesh import RoundMesh
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -101,17 +111,29 @@ class RoundLog:
 
 
 def check_schedule_and_mesh(mesh, schedule: str) -> None:
-    """Refuse an unknown schedule, and the sharded engine this port does
-    not have yet (by ROADMAP item)."""
+    """Refuse an unknown schedule, and a mesh that is not a round mesh."""
     if schedule not in ("sequential", "async"):
         raise ValueError(
             f"schedule={schedule!r} must be 'sequential' or 'async'"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded rounds) is not ported yet: ROADMAP.md Queue 1 "
-            "item 11"
+    if mesh is not None and not isinstance(mesh, RoundMesh):
+        raise TypeError(
+            f"mesh must be a round mesh from "
+            f"repro_torch.launch.mesh.make_round_mesh(n), got {type(mesh)!r}"
         )
+
+
+def runtime_device(device, mesh) -> torch.device:
+    """The device a runtime runs on: ``device``, or with a mesh the rank's
+    device, which ``device`` must not contradict."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if dev.type != mesh.device.type or dev.index not in (None,
+                                                         mesh.device.index):
+        raise ValueError(f"device={device!r} contradicts the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
 
 
 def _check_config(cfg: BFLCConfig, mesh, schedule: str) -> None:
@@ -147,7 +169,7 @@ class BFLCRuntime:
         device="cuda",
     ):
         _check_config(cfg, mesh, schedule)
-        self.device = resolve_device(device)
+        self.device = runtime_device(device, mesh)
         self.adapter = adapter
         self.data = dataset
         self.cfg = cfg
@@ -197,6 +219,23 @@ class BFLCRuntime:
         self._eval = make_eval_fn(adapter, self.device)
         self._collusion = CollusionPolicy()
 
+        # sharded round engine: one program set per mesh, consumed by the
+        # *_sharded stages through the context
+        self.mesh = mesh
+        self._sharded_train = self._sharded_score = None
+        self._sharded_quantize = self._sharded_agg = None
+        self._sharded_int8_score = None
+        if mesh is not None:
+            self._sharded_train = make_sharded_local_train_fn(
+                adapter, cfg.local_lr, mesh, cfg.momentum)
+            self._sharded_score = make_sharded_score_matrix_fn(adapter)
+            if cfg.quantize_chain:
+                self._sharded_quantize = make_quantize_stack_sharded(mesh)
+                self._sharded_agg = make_aggregate_quantized_sharded(
+                    mesh, cfg.aggregation, cfg.trim)
+                self._sharded_int8_score = make_sharded_score_from_int8_fn(
+                    adapter, self._codec.unravel)
+
         # fixed per-round sizes; committee size >= 3 (the median of two
         # scores is their mean, which one colluding member controls)
         n_active = max(2, int(round(n * cfg.active_proportion)))
@@ -218,9 +257,11 @@ class BFLCRuntime:
                                         self.q_committee)
         self._hier_inner = None
         if tiered:
-            self.pipeline, self._hier_inner = build_hier_pipeline(cfg, stages)
+            self.pipeline, self._hier_inner = build_hier_pipeline(cfg, mesh,
+                                                                  stages)
         else:
-            self.pipeline = build_pipeline(default_stage_names(cfg), stages)
+            self.pipeline = build_pipeline(default_stage_names(cfg, mesh),
+                                           stages)
         self.schedule = schedule
         if schedule == "async":
             # the same stage set under another runner: bit-identical
@@ -262,6 +303,12 @@ class BFLCRuntime:
             score_matrix_fn=self._score_matrix,
             int8_score_fn=self._int8_score,
             collusion=self._collusion,
+            mesh=self.mesh,
+            sharded_train_fn=self._sharded_train,
+            sharded_quantize_fn=self._sharded_quantize,
+            sharded_agg_fn=self._sharded_agg,
+            sharded_score_fn=self._sharded_score,
+            sharded_int8_score_fn=self._sharded_int8_score,
         )
         if self.cfg.tiers > 1:
             ctx.hier = HierState(tiers=self.cfg.tiers,

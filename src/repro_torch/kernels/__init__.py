@@ -21,6 +21,7 @@ from repro_torch.kernels.ops import (
     dequantize_pytree,
     fedavg_agg,
     padded_dim,
+    padded_dim_sharded,
     quantize,
     quantize_pytree,
     quantize_stack,
@@ -74,6 +75,7 @@ __all__ = [
     "fused_candidates_kernel",
     "launch_counts",
     "padded_dim",
+    "padded_dim_sharded",
     "quantize",
     "quantize_kernel",
     "quantize_pytree",

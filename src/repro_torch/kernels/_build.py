@@ -8,7 +8,10 @@ every count a ``c_int`` (or ``c_longlong``), and every entry returns
 hash covers every file in ``csrc/`` and the nvcc flags, so an edited source
 rebuilds and an unchanged one is loaded as built.  It happens at first use
 (or through ``build_all``), from the repository's sources only; all sources
-compile in parallel, one nvcc each.  A failed build raises.  nvcc's output,
+compile in parallel, one nvcc each.  A failed build raises.  Each
+library is compiled into a temporary file of its own and moved into place
+with ``os.replace``, so processes that load at once (the ranks of one
+card, say) see either no library or a whole one, never half of one.  nvcc's output,
 with ptxas's registers, stack and spills for every kernel (``-Xptxas -v``),
 is kept beside each library as ``lib<name>.log`` (``build_log``).
 

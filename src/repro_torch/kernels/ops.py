@@ -1,7 +1,6 @@
 """Public wrappers around the kernels: pad once, dispatch, adapt trees.
 
-Port of ``repro/kernels/ops.py`` (everything but the sharded factories).
-Callers hand over an f32 vector or (K, D) stack, or the chain's quantized
+Port of ``repro/kernels/ops.py``.  Callers hand over an f32 vector or (K, D) stack, or the chain's quantized
 representation (int8 stack + per-tile scales); padding to the tile
 boundary happens exactly once here, and the kernel wrappers below pick
 the CUDA kernel or the plain version by the tensor's device.  The f32
@@ -15,6 +14,13 @@ so their stacks go in unpadded.
   aggregate_quantized(q, scales, D, method=...)         fused int8 path
   candidates_from_quantized(base, q, scales, D)         int8 scoring path
   Int8UpdateCodec                                       chain payload codec
+
+The sharded round engine builds its codec programs once per mesh through
+the factories at the bottom (``make_quantize_stack_sharded`` /
+``make_aggregate_quantized_sharded``): each rank launches the same kernels
+on its own D-slice of the int8 stack, padded to ``padded_dim_sharded`` so
+that every slice is tile-aligned and its scales are the single-device
+codec's.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.kernels.quantize import (
     quantize_stack_kernel,
 )
 from repro_torch.kernels.tiling import BLOCK_D
+from repro_torch.launch.shardings import round_engine_pspecs
 from repro_torch.tree import ravel_pytree
 
 
@@ -161,6 +168,62 @@ def candidates_from_quantized(base: torch.Tensor, q: torch.Tensor,
     true_d = Dpad if D is None else D
     padded, _ = _pad_to_block(base.to(torch.float32))
     return fused_candidates_kernel(padded, q, scales)[:, :true_d]
+
+
+# ----------------------------------------------------------------------
+# sharded engine (one program set per mesh, built once)
+# ----------------------------------------------------------------------
+def padded_dim_sharded(d: int, shards: int) -> int:
+    """Smallest multiple of ``shards * BLOCK_D`` >= d.
+
+    Padding to this boundary keeps every D-slice tile-aligned, so each
+    slice's quantization tiles (and their scales) coincide with the
+    single-device tiles: the sharded codec differs from the single-device
+    one only in how many all-zero tiles trail the data."""
+    chunk = BLOCK_D * shards
+    return d + (-d) % chunk
+
+
+def make_quantize_stack_sharded(mesh):
+    """Sharding-aware round codec: ``quantize(stack)`` takes the (K, D) f32
+    stack every rank holds, pads D to ``padded_dim_sharded(D, ranks)`` and
+    quantizes this rank's (K, Dpad / ranks) slice in one ``quantize_stack``
+    launch.  Returns the slice's (q, scales), split as
+    ``round_engine_pspecs()["dshard"]`` names; tiles are independent, so
+    no rank waits for another."""
+    split = round_engine_pspecs()["dshard"]
+
+    def quantize_sharded(stack: torch.Tensor):
+        D = stack.shape[1]
+        padded = F.pad(stack.to(torch.float32),
+                       (0, padded_dim_sharded(D, mesh.size) - D))
+        return quantize_stack_kernel(mesh.shard(padded, split).contiguous())
+
+    return quantize_sharded
+
+
+def make_aggregate_quantized_sharded(mesh, method: str = "fedavg",
+                                     trim: int = 1):
+    """Sharded fused aggregation: ``aggregate(q, scales, weights)`` takes the
+    (K, Dpad) int8 stack and scales every rank holds and runs the fused
+    int8 -> dequantize -> reduce kernel on this rank's D-slice.  Returns the
+    slice's (Dpad / ranks,) f32 reduction (``round_engine_pspecs()["dvec"]``),
+    which the aggregator gathers into the model block.  ``weights`` must
+    already be normalized (``normalize_weights``): every rank weighs the
+    rows alike."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r} (want one of {METHODS})")
+    split = round_engine_pspecs()["dshard"]
+
+    def aggregate_sharded(q: torch.Tensor, scales: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+        return fused_agg_kernel(
+            mesh.shard(q, split).contiguous(),
+            mesh.shard(scales, split).contiguous(),
+            weights.to(torch.float32).contiguous(), method=method, trim=trim,
+        )
+
+    return aggregate_sharded
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port's entry points: CUDA by default, the CPU only on request, and
-every option the port does not have yet refused by name; the kernel
+a mesh that is not a round mesh refused by name; the kernel
 wrappers: a tensor on neither the CPU nor CUDA gets no plain version."""
 import pytest
 import torch
@@ -33,12 +33,14 @@ def test_default_device_is_cuda_and_raises_without_it(tiny_ds):
 
 
 @pytest.mark.parametrize("kwargs, cfg, match", [
-    (dict(mesh=object()), {}, "Queue 1 item 11"),
-    (dict(tiers=2, mesh=object()), {}, "Queue 1 item 11"),
-    (dict(schedule="async", mesh=object()), {}, "Queue 1 item 11"),
+    (dict(mesh=object()), {}, "make_round_mesh"),
+    (dict(tiers=2, mesh=object()), {}, "make_round_mesh"),
+    (dict(schedule="async", mesh=object()), {}, "make_round_mesh"),
 ])
 def test_unported_options_raise_not_implemented(tiny_ds, kwargs, cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Every option is ported; a mesh that is not a round mesh is refused
+    in each combination, naming what is expected."""
+    with pytest.raises(TypeError, match=match):
         build_runtime(femnist_adapter(8), tiny_ds, {**SMALL, **cfg},
                       device="cpu", **kwargs)
 

@@ -252,7 +252,7 @@ def test_schedule_validation_and_mesh_refusal(td, baseline):
     with pytest.raises(ValueError, match="schedule"):
         build_runtime(femnist_adapter(8), td, cfg, baseline=baseline,
                       schedule="overlapped", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(TypeError, match="make_round_mesh"):
         build_runtime(femnist_adapter(8), td, cfg, baseline=baseline,
                       schedule="async", mesh=object(), device="cpu")
 

@@ -65,6 +65,18 @@ def test_training_modules_load_no_jax_alone(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.fl.sharded",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.hostdevices"])
+def test_sharded_modules_load_no_jax_alone(module):
+    """The sharded engine's modules, each imported on its own in a fresh
+    process (a spawned rank imports them so)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
