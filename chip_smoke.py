@@ -33,6 +33,16 @@ Phases, one JSON line each:
   kernel_k90  the shared-memory sorts at K = 90 (f32 and fused int8): the
            f32 one no path runs, the fused one runs on tiered_int8_cwmed's
            slices at their own K (``kernel_path``)
+           The local trainer's per-client products (client_gemm) have a
+           row for each of four forms at the full-width shapes (conv2
+           forward, conv2 and conv1 weight gradients read through a
+           transposed view, fc1 forward), against one torch.mm a client
+           within the f32 dot-product bound K * 2^-23 * sum |a||b|
+  trainer_invariance  the flat path's local trainer (P = 54, width 32, 20
+           steps of batch 32) whole and in consecutive calls of 27, 8 and
+           1 clients: every client's update bit for bit the whole call's;
+           ``trainer_cost`` the flat int8 path's train stage with this
+           trainer and with the per-client program vmapped, in turns
   paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
            900 writers, P = 54, Q = 36, k = 8) on one dataset, each path
            with the launch counts set to 0 just before it and read just
@@ -109,7 +119,11 @@ Phases, one JSON line each:
                     committee path against world 1's round by round; the
                     ranks' launches are summed into ``kernels``;
                     ``kernel_path`` lines time #2 and #4 on each rank's
-                    (8, 215,040) slice
+                    (8, 215,040) slice; ``train_witness``: each rank's
+                    block equals the single-device program on its 27
+                    clients and the 54-client program's rows bit for
+                    bit; ``world2_vs_world1``: the same logs, uploaders,
+                    blobs and committed model as world 1 in every round
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -147,6 +161,18 @@ Phases, one JSON line each:
                     D = 1,176,764,416 (K x Dpad > 2^31) against their plain
                     versions over chunks of lanes, with CUDA-event times
                     and bytes bounds
+           serve_rwkv6_7b, serve_qwen3_moe  rwkv6-7b at full width and
+                    depth (7,577,018,368 f32 params) and qwen3-moe-30b-a3b
+                    at full width, 16 of its 48 units (128 experts top 8,
+                    the dense MoE path: 10,592,258,048 params, 42.4 GB),
+                    from a seeded generator: serve_olmo_1b's trace
+                    continuous and static, every request equal to its
+                    same-row and batch-1 oracles (slots reused, so no
+                    recurrent state leaks), no implicit sync, a
+                    ``decode_tick`` against the bytes bound of reading
+                    every parameter, and one prompt's prefill logits on a
+                    2-unit cut of the same weights against a float64 host
+                    prefill; no hot swap, no kernel launches
            train_lm_100m  repro_torch.launch.train.run_lm on the card at the
                     CLI's defaults (repro-100m, 116,411,136 params, batch
                     16, seq 256, lr 3e-4, linear_warmup_cosine(lr, 20,
@@ -175,13 +201,15 @@ Phases, one JSON line each:
                     warmup 1: 3 steps, step 1 moves nothing, steps 2-3 move
                     every leaf; s/step, peak memory, busy share, f32 share
            train_fl  run_fl for 2 rounds at the CLI's defaults (a plain f32
-                    chain: no kernel launches): verify(), accuracy in [0, 1]
+                    chain: no kernel launches but the local trainer's
+                    client_gemm): verify(), accuracy in [0, 1]
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import itertools
@@ -217,7 +245,11 @@ KERNELS = {
     "fedavg_agg": ("f32_agg.cu", "src/repro/kernels/fedavg_agg.py:39"),
     "cwmed": ("f32_agg.cu", "src/repro/kernels/cwmed.py:67"),
     "trimmed_mean": ("f32_agg.cu", "src/repro/kernels/cwmed.py:91"),
+    # the local trainer's per-client products: the reference's vmapped
+    # per-client XLA program, which no Pallas kernel carries
+    "client_gemm": ("client_gemm.cu", "src/repro/fl/client.py:56"),
 }
+TRAINER_KERNEL = "client_gemm"
 
 
 def emit(**fields) -> None:
@@ -416,6 +448,7 @@ def phase_kernels():
 
     from repro_torch.core.aggregation import normalize_weights
     from repro_torch.kernels import ops
+    from repro_torch.kernels.client_gemm import client_gemm_kernel, client_gemm_ref
     from repro_torch.kernels.cwmed import (
         _CWMED, _TRIMMED_MEAN, _launch_sort, cwmed_kernel, cwmed_ref,
         median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
@@ -718,6 +751,34 @@ def phase_kernels():
         alternatives={"shared memory": lambda a: _launch_sort(
             a, _TRIMMED_MEAN, 1, force_shared=True)})
 
+    # the local trainer's per-client products at the main path's shapes
+    # (P = 54 clients, batch 32, width 32): two forward products and the
+    # two weight gradients that read a transposed operand in place.  The
+    # plain version sums in another order (one torch.mm a client), so the
+    # tolerance is the f32 dot-product bound K * 2^-23 * (sum |a||b| + |bias|)
+    bs = 32
+    for form, (M_, K_, N_), transposed, with_bias in (
+            ("conv2 forward", (bs * 196, 288, 64), False, True),
+            ("conv2 weight gradient", (288, bs * 196, 64), True, False),
+            ("conv1 weight gradient", (9, bs * 784, 32), True, False),
+            ("fc1 forward", (bs, 3136, 128), False, True)):
+        a_ = (torch.randn((MAIN_P, K_, M_), generator=g, device="cuda")
+              .transpose(1, 2) if transposed else
+              torch.randn((MAIN_P, M_, K_), generator=g, device="cuda"))
+        b_ = torch.randn((MAIN_P, K_, N_), generator=g, device="cuda")
+        bias_ = (torch.randn((MAIN_P, N_), generator=g, device="cuda")
+                 if with_bias else None)
+        cpu_ = tuple(t.cpu() if t is not None else None for t in (a_, b_, bias_))
+        scale = float(client_gemm_ref(cpu_[0].abs(), cpu_[1].abs()).max())
+        scale += float(cpu_[2].abs().max()) if with_bias else 0.0
+        row("client_gemm", client_gemm_kernel, client_gemm_ref, cpu_,
+            (a_, b_, bias_), K_ * 2.0 ** -23 * scale,
+            f32 * MAIN_P * (M_ * K_ + K_ * N_ + M_ * N_ + N_ * with_bias),
+            2 * MAIN_P * M_ * N_ * K_,
+            library=(lambda a=a_, b=b_, c=bias_: torch.baddbmm(c[:, None], a, b)
+                     if c is not None else torch.bmm(a, b)),
+            form=form)
+
     # the shared-memory sort at a full Basic-FL cohort's K, which no path
     # runs (the baselines aggregate with the plain reductions)
     K90 = 90
@@ -856,6 +917,72 @@ def path_int8(ds):
     return counted("int8", drive, {"quantize_stack": rounds,
                                    "fused_agg": rounds,
                                    "dequantize": MAIN_K + 1, "quantize": 1})
+
+
+TRAINER_CALLS = (27, 8, 1)     # clients a call, against one call of MAIN_P
+TRAINER_TURNS = ("client_gemm", "vmap", "client_gemm", "vmap")
+TRAINER_TURN_ROUNDS = 2
+
+
+def phase_trainer_invariance(ds) -> None:
+    """The flat path's local trainer on the card (FEMNIST CNN width 32, the
+    round's 20 steps of batch 32, lr 0.02, momentum 0.9) on MAIN_P
+    clients' batches, whole and in consecutive calls of 27, 8 and 1
+    clients: every row must equal the whole call's bit for bit.  Then the
+    flat int8 path's train stage with this trainer against the per-client
+    program ``vmap``ped (the form whose rows moved with P), runtimes of
+    TRAINER_TURN_ROUNDS rounds in turns, each turn's first round a warmup:
+    ``trainer_cost`` lines."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_runtime
+    from repro_torch.device import to_device
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.fl.client import flatten_stacked_updates, sample_client_batches
+
+    rt = build(ds, {"quantize_chain": True, "use_kernels": True})
+    cfg = rt.cfg
+    rng = np.random.default_rng(0)
+    batches = [sample_client_batches(rng, ds.client_images[c],
+                                     ds.client_labels[c], cfg.local_steps,
+                                     cfg.local_batch) for c in range(MAIN_P)]
+    xs = to_device(np.stack([b[0] for b in batches]), "cuda")
+    ys = to_device(np.stack([b[1] for b in batches]), "cuda")
+
+    params = rt.global_params()
+
+    def train(lo, hi):
+        return flatten_stacked_updates(rt._local_train(params, xs[lo:hi],
+                                                       ys[lo:hi]))
+
+    whole = train(0, MAIN_P)
+    for n in TRAINER_CALLS:
+        parts = torch.cat([train(i, i + n) for i in range(0, MAIN_P, n)])
+        rows = (parts != whole).any(dim=1)
+        out = {"clients": MAIN_P, "call": n, "equal": same_bits(parts, whole),
+               "rows_differing": int(rows.sum()),
+               "max_abs_diff": float((parts - whole).abs().max())}
+        emit(phase="trainer_invariance", **out)
+        check(out["equal"], f"calls of {n} clients differ from one call of "
+                            f"{MAIN_P}: {out}")
+    del rt
+    train_s = {form: [] for form in TRAINER_TURNS}
+    for form in TRAINER_TURNS:
+        adapter = femnist_adapter(width=32)
+        if form == "vmap":
+            adapter = adapter._replace(stacked_loss=None)
+        rt = build_runtime(adapter, ds, {"quantize_chain": True,
+                                         "use_kernels": True, "seed": 0},
+                           device="cuda")
+        for _ in range(TRAINER_TURN_ROUNDS):
+            rt.run_round()
+        train_s[form] += [t["train"] for t in
+                          rt.stage_timings[1:]]
+        del rt
+    emit(phase="trainer_cost", path="int8", steady_rounds=train_s,
+         steady_min_max={f: [min(v), max(v)] for f, v in train_s.items()},
+         card=nvidia_smi())
 
 
 def path_int8_committee(ds):
@@ -1808,11 +1935,10 @@ def train_witness(rt, mesh, train_in) -> dict:
     the sharded trainer got: its block (the rank's 27 clients), the
     single-device program on those 27 clients' batches, and the same
     program on all 54 clients (world 1's and the flat round's program),
-    cut to the rank's rows.  The first two must be equal bit for bit (the
-    sharded program is the 27-client program); whether the last two are
-    says whether the card's training arithmetic depends on how many
-    clients share a batched call, which world 2 against world 1 turns
-    on."""
+    cut to the rank's rows.  All three must be equal bit for bit: the
+    sharded program is the 27-client program, and a client's update does
+    not depend on how many clients share the trainer's call, which world
+    2 against world 1 turns on."""
     from repro_torch.device import to_device
     from repro_torch.fl.client import flatten_stacked_updates
     from repro_torch.launch.shardings import round_engine_pspecs
@@ -1836,6 +1962,10 @@ def train_witness(rt, mesh, train_in) -> dict:
     check(out["sharded_equals_rank_program"],
           f"rank {mesh.rank}: the sharded trainer's block differs from the "
           f"single-device program on the rank's clients")
+    check(out["rank_program_equals_full_rows"],
+          f"rank {mesh.rank}: {out['rows_differing']} rows of the "
+          f"{out['rank_clients']}-client call differ from the "
+          f"{out['clients']}-client call's, by up to {out['max_abs_diff']}")
     return out
 
 
@@ -1887,7 +2017,6 @@ def sharded_rank(init) -> dict:
     the committed model against the plain replay of the stored blobs;
     then the training witness on the committee path's round 0 and the
     shard-shape kernel times.  Returns host data only."""
-    import dataclasses
 
     import torch
 
@@ -1982,7 +2111,8 @@ def path_sharded_world2(init, world1) -> dict:
     path against world 1's (``world1``).  An exclusive compute mode stops
     the script: two ranks cannot share the card then.  Returns path ->
     launch counts summed over the ranks."""
-    import dataclasses
+
+    import torch
 
     from repro_torch.hostdevices import spawn_world
 
@@ -2026,21 +2156,23 @@ def path_sharded_world2(init, world1) -> dict:
                               f"sequential twin: {twin}")
     w2 = ranks[0]["paths"]["sharded_int8_committee"]
     logs1 = [dataclasses.asdict(l) for l in world1["logs"]]
-    emit(phase="world2_vs_world1", path="sharded_int8_committee",
-         logs_equal=logs1 == w2["logs"],
-         rounds=[{"round": t, "log_equal": logs1[t] == w2["logs"][t],
-                  "packed_equal": world1["packed"][t] == w2["packed"][t],
-                  "blob_q_max_steps": int((world1["q"][t].int()
-                                           - w2["q"][t].int()).abs().max())
-                  if world1["packed"][t] == w2["packed"][t] else None,
-                  "model_max_abs_diff": float(
-                      (world1["models"][t] - w2["models"][t]).abs().max()),
-                  "model_equal": same_bits(world1["models"][t],
-                                           w2["models"][t])}
-                 for t in range(ROUNDS_SHARDED)])
     for r in ranks:
         emit(phase="train_witness", path="sharded_int8_committee",
              rank=r["rank"], **r["train_witness"])
+    rounds = [{"round": t, "log_equal": logs1[t] == w2["logs"][t],
+               "packed_equal": world1["packed"][t] == w2["packed"][t],
+               "blobs_equal": world1["packed"][t] == w2["packed"][t]
+               and torch.equal(world1["q"][t], w2["q"][t]),
+               "model_max_abs_diff": float(
+                   (world1["models"][t] - w2["models"][t]).abs().max()),
+               "model_equal": same_bits(world1["models"][t],
+                                        w2["models"][t])}
+              for t in range(ROUNDS_SHARDED)]
+    emit(phase="world2_vs_world1", path="sharded_int8_committee",
+         logs_equal=logs1 == w2["logs"], rounds=rounds)
+    for rd in rounds:
+        check(rd["log_equal"] and rd["packed_equal"] and rd["blobs_equal"]
+              and rd["model_equal"], f"world 2 departs from world 1: {rd}")
     for r in ranks:
         for line in r["kernel_paths"]:
             emit(phase="kernel_path", path="sharded_world2", **line,
@@ -2054,8 +2186,8 @@ def path_baselines(ds) -> None:
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
     rounds each of 90 clients, then 20 steps of train_standalone.  Like the
     reference's, the baselines aggregate with the plain reductions, so no
-    kernel may launch.  Checked: finite params that moved from the init,
-    test accuracies in [0, 1]."""
+    kernel but the local trainer's may launch.  Checked: finite params that
+    moved from the init, test accuracies in [0, 1]."""
     import torch
 
     from repro_torch.api import build_runtime
@@ -2102,7 +2234,9 @@ def path_baselines(ds) -> None:
           f"standalone: test accuracies {accs}")
     counts = launch_counts()
     emit(phase="launches", path="baselines", launches=counts)
-    check(not any(counts.values()), "a baseline launched a kernel")
+    check(counts[TRAINER_KERNEL] > 0 and not any(
+        n for k, n in counts.items() if k != TRAINER_KERNEL),
+        "a baseline launched a kernel other than the trainer's")
 
 
 # the serving path: olmo-1b at full width and depth, f32, served with the
@@ -2156,7 +2290,8 @@ def oracle_row(cfg, params, res, req, cache: dict):
     return cache[key]
 
 
-def batch_invariance(cfg, params, trace, reports) -> None:
+def batch_invariance(cfg, params, trace, reports,
+                     path: str = "serve_olmo_1b") -> None:
     """The reference's pin as it states it: every served request equals its
     batch-1 oracle token for token, under both policies.  Reported beside
     it: the logits request 0 decodes from at 1 row and at SERVE_SLOTS rows
@@ -2178,17 +2313,18 @@ def batch_invariance(cfg, params, trace, reports) -> None:
               for rows in (1, SERVE_SLOTS)]
     diff = (logits[0] - logits[1]).abs()
     top2 = torch.topk(logits[0], 2, dim=-1).values
-    emit(phase="batch_invariance", path="serve_olmo_1b",
+    emit(phase="batch_invariance", path=path,
          seconds=time.perf_counter() - t0, requests=len(trace),
          equal_batch1_oracle=equal, steps=len(diff),
          logits_max_abs_diff=float(diff.max()),
          logits_differing=int((diff > 0).sum()), logits=int(diff.numel()),
          min_top2_margin=float((top2[:, 0] - top2[:, 1]).min()))
     check(all(n == len(trace) for n in equal.values()),
-          f"serve_olmo_1b: requests equal to the batch-1 oracle {equal}")
+          f"{path}: requests equal to the batch-1 oracle {equal}")
 
 
-def full_width_reference(cfg, params, prompt) -> None:
+def full_width_reference(cfg, params, prompt,
+                         path: str = "serve_olmo_1b") -> None:
     """An independent check of the card's full-width arithmetic: the prefill
     logits of one prompt (its last position, which the first token is the
     argmax of) against the same prefill on the CPU with float64 weights
@@ -2218,12 +2354,13 @@ def full_width_reference(cfg, params, prompt) -> None:
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     top1 = (int(got.argmax()), int(want.argmax()))
     top2 = torch.topk(want, 2).values
-    emit(phase="full_width_reference", path="serve_olmo_1b", prompt_len=S,
+    emit(phase="full_width_reference", path=path, prompt_len=S,
+         units=cfg.num_units,
          max_abs_err=err, max_abs_logit=scale, rtol=SERVE_F64_RTOL,
          top1=top1, top2_margin=float(top2[0] - top2[1]),
          seconds=time.perf_counter() - t0)
     check(err <= SERVE_F64_RTOL * scale and top1[0] == top1[1],
-          f"serve_olmo_1b: prefill logits off the float64 CPU prefill by "
+          f"{path}: prefill logits off the float64 CPU prefill by "
           f"{err} (max |logit| {scale}), argmax {top1}")
 
 
@@ -2267,7 +2404,8 @@ def commit_scored_round(chain, params, updates: dict, scores: dict, *,
     return ctx
 
 
-def served_without_syncs(engine, trace, timed) -> None:
+def served_without_syncs(engine, trace, timed,
+                         path: str = "serve_olmo_1b") -> None:
     """One more (untimed) continuous run, on a VirtualClock, under
     ``torch.cuda.set_sync_debug_mode("warn")``: the engine's loop makes no
     implicit host-device sync (the token vectors come back through pinned
@@ -2289,27 +2427,31 @@ def served_without_syncs(engine, trace, timed) -> None:
     sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     same = sum(a.tokens == b.tokens for a, b in zip(rep.results, timed.results))
-    emit(phase="serve_syncs", path="serve_olmo_1b", implicit_syncs=len(sites),
+    emit(phase="serve_syncs", path=path, implicit_syncs=len(sites),
          sites=sorted(set(sites)), ticks=rep.ticks,
          requests_equal_to_timed_run=same)
-    check(not sites, f"serve_olmo_1b: implicit syncs in the engine at {sites}")
-    check(same == len(trace), "serve_olmo_1b: a request decoded other tokens "
-                              "on a VirtualClock than on the WallClock")
+    check(not sites, f"{path}: implicit syncs in the engine at {sites}")
+    check(same == len(trace), f"{path}: a request decoded other tokens on a "
+                              f"VirtualClock than on the WallClock")
 
 
-def decode_tick(cfg, params) -> None:
+def decode_tick(cfg, params, path: str = "serve_olmo_1b") -> None:
     """One decode step at 1 row and at SERVE_SLOTS rows: the host's time to
     issue it, its CUDA-event time, and under torch.profiler the device's
     busy time in it (the union of its kernels' intervals) and its kernels
-    by time.  Busy well under the event time means the host paces it."""
+    by time.  Busy well under the event time means the host paces it.
+    ``bytes_bound_ms``: every parameter read once (a dense MoE runs every
+    expert on every row) at the card's memory rate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import init_cache
+    from repro_torch.tree import tree_leaves
 
     step = make_decode_step(cfg, return_logits=False)
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     reps = 10
     for rows in (1, SERVE_SLOTS):
         cache = init_cache(cfg, rows, SERVE_MAX_LEN, torch.float32, "cuda")
@@ -2342,8 +2484,9 @@ def decode_tick(cfg, params) -> None:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        emit(phase="decode_tick", path="serve_olmo_1b", rows=rows,
+        emit(phase="decode_tick", path=path, rows=rows,
              host_ms=host_ms, event_ms=event_ms, device_busy_ms=busy_ms,
+             bytes_bound_ms=1e3 * param_bytes / HBM_BYTES_PER_S,
              busy_share=busy_ms / event_ms, kernels=len(device) / 3,
              top=[{"kernel": k[:100], "us": us / 3, "count": n / 3}
                   for k, (us, n) in top])
@@ -2617,6 +2760,89 @@ def path_serve_olmo_1b() -> dict:
           f"{path}: launches {counts}, want exactly {want}")
     lm_kernel_lines(out["stack"], out["q"], out["s"], out["w"], counts)
     out.clear()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the non-dense archs behind the engine, on serve_olmo_1b's trace: path ->
+# (arch, units or None for the config's depth).  qwen3-moe-30b-a3b keeps 16
+# of its 48 units: all 48 are 122.1 GB of f32 params, 16 are 42.4 GB
+SERVE_ARCHS = {"serve_rwkv6_7b": ("rwkv6-7b", None),
+               "serve_qwen3_moe": ("qwen3-moe-30b-a3b", 16)}
+SERVE_F64_UNITS = 2      # units of the float64 host prefill's cut
+
+
+def path_serve_arch(path: str) -> dict:
+    """A recurrent (RWKV-6) or dense-path MoE model at full width behind the
+    continuous-batching engine, random f32 weights from a seed on the card:
+    the reference CLI's 16-request trace served continuous and static on a
+    WallClock, every request held to its same-row and its batch-1 oracle
+    (slots are reused, so a finished request's recurrent state must not
+    reach the next one), no implicit sync in the engine's loop, one
+    decode tick's times against the bytes bound of reading every
+    parameter, and the prefill logits of one prompt against a float64
+    host prefill of the first SERVE_F64_UNITS units of the same weights
+    (the host cannot hold the whole tree in float64).  No hot swap: a
+    K = 2 update stack of a 30-42 GB model does not fit beside it.  No
+    kernel launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.device import synchronize
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, WallClock, make_poisson_trace
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch, units = SERVE_ARCHS[path]
+    cfg = registry.get_config(arch, **({"num_units": units} if units else {}))
+    dev = torch.device("cuda")
+
+    def drive():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        synchronize(dev)
+        n = sum(t.numel() for t in tree_leaves(params))
+        emit(phase="serve_setup", path=path, arch=cfg.name,
+             units=cfg.num_units, full_units=registry.get_config(arch).num_units,
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             vocab=cfg.vocab_size, experts=cfg.num_experts,
+             experts_per_token=cfg.num_experts_per_tok, params=n,
+             param_bytes=4 * n, init_s=time.perf_counter() - t0)
+        trace = make_poisson_trace(vocab_size=cfg.vocab_size, **SERVE_TRACE)
+        cut = dataclasses.replace(cfg, num_units=SERVE_F64_UNITS)
+        full_width_reference(cut, {**params, "units": tree_map(
+            lambda t: t[:SERVE_F64_UNITS], params["units"])},
+            trace[0].prompt, path=path)
+        engine = ServeEngine(cfg, params, num_slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, device=dev)
+        t0 = time.perf_counter()
+        engine.warmup(SERVE_TRACE["prompt_lens"])
+        emit(phase="serve_warmup", path=path, seconds=time.perf_counter() - t0)
+        reports, oracle = {}, {}
+        for policy in ("continuous", "static"):
+            rep = engine.run(trace, policy=policy, clock=WallClock())
+            reports[policy] = rep
+            slots = [res.slot for res in rep.results]
+            emit(phase="serve", path=path, policy=policy, clock="wall",
+                 slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 most_requests_a_slot=max(slots.count(x) for x in set(slots)),
+                 **rep.metrics())
+            for res, req in zip(rep.results, trace):
+                check(len(res.tokens) == req.max_new,
+                      f"{path} {policy}: request {req.rid} truncated")
+                check(res.tokens == oracle_row(cfg, params, res, req, oracle),
+                      f"{path} {policy}: request {req.rid} differs from its "
+                      f"oracle")
+        served_without_syncs(engine, trace, reports["continuous"], path=path)
+        batch_invariance(cfg, params, trace, reports, path=path)
+        decode_tick(cfg, params, path=path)
+        emit(phase="serve_memory", path=path,
+             peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    counts, _ = counted(path, drive, {})
+    check(not any(counts.values()), f"{path}: launches {counts}")
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -3240,7 +3466,8 @@ def path_train_fl() -> dict:
     """repro_torch.launch.train.run_fl for 2 rounds at the CLI's defaults
     (100 clients, 20 % active, k = 8, 20 local steps, FEMNIST CNN width 16):
     run_fl checks chain.verify(); the accuracy in [0, 1].  The defaults are
-    the reference's plain f32 chain, so no kernel launches."""
+    the reference's plain f32 chain, so no kernel but the local trainer's
+    launches."""
     from repro_torch.launch.train import run_fl
 
     path = "train_fl"
@@ -3256,7 +3483,9 @@ def path_train_fl() -> dict:
     emit(phase="train_fl", path=path, rounds=TRAIN_FL_ROUNDS,
          test_accuracy=acc["value"], seconds=acc["seconds"])
     check(0.0 <= acc["value"] <= 1.0, f"{path}: accuracy {acc['value']}")
-    check(not any(counts.values()), f"{path}: launches {counts}")
+    check(counts[TRAINER_KERNEL] > 0 and not any(
+        n for k, n in counts.items() if k != TRAINER_KERNEL),
+        f"{path}: launches {counts}")
     return counts
 
 
@@ -3387,6 +3616,7 @@ def main(argv) -> int:
     ds = make_femnist_like(seed=1)
     emit(phase="data", seconds=time.perf_counter() - t0,
          clients=ds.num_clients, test=len(ds.test_labels))
+    phase_trainer_invariance(ds)
     paths = {"int8": path_int8(ds), "int8_committee": path_int8_committee(ds)}
     for m in ("cwmed", "trimmed_mean"):
         paths[f"int8_{m}"] = path_int8_sort(ds, m)
@@ -3414,6 +3644,10 @@ def main(argv) -> int:
     later["serve_olmo_1b"] = path_serve_olmo_1b()
     emit(phase="path_seconds", path="serve_olmo_1b",
          seconds=time.perf_counter() - t0)
+    for name in SERVE_ARCHS:
+        t0 = time.perf_counter()
+        later[name] = path_serve_arch(name)
+        emit(phase="path_seconds", path=name, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     trained = path_train_lm_100m()
     later["train_lm_100m"] = trained.pop("counts")

@@ -5,7 +5,10 @@ The reference's params become numpy with ``jax.tree.map(np.asarray, p)``;
 with the same keys, shapes and layouts (HWIO conv kernels, (in, out) dense
 weights; an LM's ``units`` and ``tail`` stay tuples and its unit leaves
 keep their leading ``num_units`` axis, so ``tree_paths`` walks the
-reference's key paths in order), and ``to_numpy_tree`` is its inverse.
+reference's key paths in order; an MoE layer's ``router`` (D, E) and
+expert ``gate`` / ``up`` (E, D, F) and ``down`` (E, F, D), and an RWKV-6
+layer's time-mix and channel-mix leaves, cross as they are), and
+``to_numpy_tree`` is its inverse.
 bfloat16 arrays (the reference's ``moment_dtype=jnp.bfloat16`` moments,
 numpy arrays of ``ml_dtypes.bfloat16``) cross through an int16 view;
 going back, bfloat16 tensors become float32 arrays, which hold every

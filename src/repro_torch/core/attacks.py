@@ -76,6 +76,16 @@ class CollusionPolicy:
         return honest_score
 
 
+def poison_membership(manager, node_ids) -> None:
+    """Re-point the community's malicious ground truth at exactly the given
+    nodes; everyone else reverts to honest.  Whole-group collusion (every
+    trainer and member of one tier-1 slice) re-marks the compromised set
+    each round with this."""
+    target = {int(i) for i in node_ids}
+    for nid, node in manager.nodes.items():
+        node.is_malicious = nid in target
+
+
 ATTACKS = {
     "gaussian": gaussian_perturbation,
     "sign_flip": lambda rng, u, **kw: sign_flip(u, **kw),

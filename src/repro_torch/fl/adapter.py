@@ -6,7 +6,7 @@ experiments and the LM zoo plug in through this.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -15,6 +15,10 @@ class ModelAdapter(NamedTuple):
     init: Callable[[torch.Generator], Any]                 # generator -> params
     loss: Callable[[Any, Any, Any], torch.Tensor]          # (params, x, y) -> scalar
     accuracy: Callable[[Any, Any, Any], torch.Tensor]
+    # (P-stacked params, (P, B, ...) x, (P, B) y) -> sum of the P clients'
+    # losses, each client's arithmetic independent of P; the local trainer
+    # uses it when given (repro_torch.fl.client.make_local_train_fn)
+    stacked_loss: Optional[Callable[[Any, Any, Any], torch.Tensor]] = None
 
 
 def femnist_adapter(width: int = 32) -> ModelAdapter:
@@ -24,6 +28,7 @@ def femnist_adapter(width: int = 32) -> ModelAdapter:
         init=lambda generator: cnn.init_params(generator, width=width),
         loss=cnn.loss_fn,
         accuracy=cnn.accuracy,
+        stacked_loss=cnn.stacked_loss,
     )
 
 

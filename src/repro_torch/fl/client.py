@@ -1,19 +1,26 @@
 """Client-side local training, batched across clients, and committee scoring.
 
 Port of ``repro/fl/client.py``.  The round's P trainers each run momentum
-SGD from the same global model; ``torch.func.vmap`` over the per-client
-program trains all of them in one batched pass per step (the reference
-``vmap``s a ``scan``; here the step loop is a Python loop inside the
-vmapped function).  Committee validation scores the (P updates x Q
+SGD from the same global model, all of them in one batched pass per step.
+The reference ``vmap``s one per-client XLA program, so a client's update
+does not depend on which or how many clients share the call.  The port
+holds the same property where the adapter gives a ``stacked_loss`` (the
+FEMNIST CNN does): its products go through ``kernels.client_gemm``, one
+fixed-order FMA chain an output on the card and one ``torch.mm`` a client
+on the CPU, and the rest of the step is elementwise or row-wise.  An
+adapter without one (``lm_adapter``) is trained by ``torch.func.vmap``
+over the per-client program, whose batched products PyTorch may round
+differently at another P.  Committee validation scores the (P updates x Q
 members) accuracy matrix: each candidate ``params + update_i`` is built
 once and all Q member batches run through it in one batched forward.  The
 int8 scorer does the same for the chain codec's int8 view of each update.
 
 The sharded round engine (``repro_torch.fl.sharded``) runs these same
 programs on each rank's block of the cohort: ``make_sharded_*`` build
-them once per mesh.  A rank's per-client results are the single-device
-program's on the same rows, so the gathered stacks equal the
-single-device ones.
+them once per mesh.  With a ``stacked_loss`` adapter and with the scorers
+(one candidate at a time), a rank's per-client results are the
+single-device program's on the same rows, so the gathered stacks equal
+the single-device ones.
 """
 from __future__ import annotations
 
@@ -52,8 +59,32 @@ def make_local_train_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0)
     """Returns train(params, xs, ys) batched over a leading client axis.
 
     xs: (P, steps, batch, ...), ys: (P, steps, batch).  Output: the update
-    tree stacked over P (update = locally trained params - global params)."""
-    return vmap(make_one_client_fn(adapter, lr, momentum), in_dims=(None, 0, 0))
+    tree stacked over P (update = locally trained params - global params).
+    With ``adapter.stacked_loss`` each client's row is the same bits in a
+    call of any P (see the module docstring); without it the per-client
+    program is ``vmap``ped."""
+    if adapter.stacked_loss is None:
+        return vmap(make_one_client_fn(adapter, lr, momentum),
+                    in_dims=(None, 0, 0))
+
+    def train(params, xs, ys):
+        P = xs.shape[0]
+        p = tree_map(lambda a: a.detach()[None].expand(P, *a.shape).clone(),
+                     params)
+        mu = tree_map(torch.zeros_like, p)
+        for step in range(xs.shape[1]):
+            live = tree_map(lambda a: a.detach().requires_grad_(), p)
+            with torch.enable_grad():
+                g = torch.autograd.grad(
+                    adapter.stacked_loss(live, xs[:, step], ys[:, step]),
+                    tree_leaves(live))
+            g = iter(g)
+            g = tree_map(lambda _: next(g), p)      # tree_leaves order
+            mu = tree_map(lambda m, gg: momentum * m + gg, mu, g)
+            p = tree_map(lambda pp, m: pp - lr * m, p, mu)
+        return tree_map(lambda a, b: a - b[None], p, params)
+
+    return train
 
 
 def make_sharded_local_train_fn(adapter: ModelAdapter, lr: float, mesh,
@@ -65,8 +96,10 @@ def make_sharded_local_train_fn(adapter: ModelAdapter, lr: float, mesh,
     the rank copies only its block of clients (split as
     ``round_engine_pspecs()["clients"]`` names) to ``mesh.device`` and
     returns that block's update tree.  The caller pads P to a multiple of
-    the mesh size; clients are independent rows of the batched program,
-    so padded rows leave the real ones unchanged."""
+    the mesh size.  With ``adapter.stacked_loss``, a client's row does not
+    depend on the other rows of its call, so the block's rows are the
+    single-device program's bit for bit and padded rows leave the real
+    ones unchanged; a ``vmap``ped adapter's rows may round differently."""
     batched = make_local_train_fn(adapter, lr, momentum)
     split = round_engine_pspecs()["clients"]
 

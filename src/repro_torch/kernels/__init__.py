@@ -2,11 +2,13 @@
 
 One module per kernel family (``quantize``: codec quantize / dequantize;
 ``fused_agg``: fused int8 aggregation; ``fused_score``: candidates from
-int8 rows; ``fedavg_agg`` and ``cwmed``: f32 aggregation), each holding
+int8 rows; ``fedavg_agg`` and ``cwmed``: f32 aggregation; ``client_gemm``:
+the local trainer's per-client matrix products), each holding
 the wrapper that launches the CUDA kernel of ``csrc/`` beside its plain
 PyTorch version, plus ``ops`` (the public layer) and ``_build``
 (nvcc + ctypes).
 """
+from repro_torch.kernels.client_gemm import client_gemm_kernel
 from repro_torch.kernels.cwmed import cwmed_kernel, trimmed_mean_kernel
 from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel
 from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel
@@ -44,6 +46,7 @@ KERNEL_WRAPPERS = {
     "fedavg_agg": fedavg_agg_kernel,
     "cwmed": cwmed_kernel,
     "trimmed_mean": trimmed_mean_kernel,
+    "client_gemm": client_gemm_kernel,
 }
 
 
@@ -64,6 +67,7 @@ __all__ = [
     "aggregate",
     "aggregate_quantized",
     "candidates_from_quantized",
+    "client_gemm_kernel",
     "cwmed",
     "cwmed_kernel",
     "dequantize",

@@ -54,6 +54,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "repro_fedavg_agg": [_P, _P, _P, _I, _L, _P],
         "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _I, _P],
     },
+    "client_gemm": {
+        "repro_client_gemm": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P,
+                              _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

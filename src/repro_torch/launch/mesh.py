@@ -7,7 +7,7 @@ process, and the mesh is the rank's view of a one-dimensional
 moves a sharded program makes, ``shard`` (take this rank's block of a
 tensor every rank holds) and ``gather`` (all-gather the ranks' blocks).
 The LM's meshes (``make_host_mesh``, ``make_production_mesh``) wait with
-the MoE (ROADMAP.md Queue 1 item 12).
+the expert-parallel MoE (ROADMAP.md Queue 1 item 11).
 
 Every rank runs the round's whole host pipeline from the same seed, so a
 round mesh spans the whole process group: ``make_round_mesh(n)`` needs

@@ -7,6 +7,11 @@ Port of ``repro/launch/serve.py``, with its flags and defaults, plus
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \\
       --device cpu
 
+Every decoder of the registry serves: the dense ones, the MoE archs
+(mixtral-8x7b, qwen3-moe-30b-a3b; the dense MoE path) and rwkv6-7b (its
+recurrent state rides in the decode cache).  jamba (mamba) and qwen2-vl
+(M-RoPE) raise ``NotImplementedError``; hubert-xlarge is an encoder.
+
 ``--static`` switches the admission policy to the whole-batch barrier
 (all requests of a batch start and finish together).  The heavy lifting
 lives in ``repro_torch.serve``; this module only parses flags, builds the

@@ -8,8 +8,8 @@ rank holds whole.  The sharded programs (``repro_torch.fl.client``,
 ``repro_torch.kernels.ops``) and stages (``repro_torch.fl.sharded``) split
 with ``RoundMesh.shard`` and gather with ``RoundMesh.gather`` by these
 dictionaries.  The LM's specs (``ShardingPolicy``, ``param_pspecs``,
-``batch_pspecs``, ``cache_pspecs``) wait with the MoE (ROADMAP.md Queue 1
-item 12).
+``batch_pspecs``, ``cache_pspecs``) wait with the expert-parallel MoE
+(ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 Port of ``repro/launch/steps.py``.  The reference's steps take a mesh and
 a ``ShardingPolicy``; on one card there is nothing to shard, so the
-port's take neither (the sharded train step is ROADMAP.md Queue 1 item
-11, the MoE sharding context item 12).
+port's take neither (the sharded train step and the MoE sharding
+context are ROADMAP.md Queue 1 item 11).
 
 Two training flavours:
 

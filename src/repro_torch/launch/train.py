@@ -11,8 +11,8 @@ Port of ``repro/launch/train.py``, with its flags and defaults, plus
   trained on synthetic Markov-chain data with ``launch/steps.py``'s train
   step, in ``standard`` or ``bflc`` (committee-weighted) mode.
   ``--use-all-devices`` is accepted for the reference's command lines and
-  means the one device: the LM's sharded step waits with the MoE
-  (ROADMAP.md Queue 1 item 12).
+  means the one device: the LM's sharded step waits with the LM mesh
+  (ROADMAP.md Queue 1 item 11).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --driver lm --steps 200

@@ -6,7 +6,7 @@ Port of ``repro/models/attention.py``, dense path only:
 sequences up to ``DENSE_MAX`` and single-token decode, everything a
 serving node at these lengths runs.  The reference's chunked / flash
 path for longer sequences (``models/flash.py``) waits for ROADMAP.md
-Queue 1 item 12 and raises.  Attention is plain PyTorch (matmuls and a
+Queue 1 item 12(e) and raises, as M-RoPE (item 12(d)) does.  Attention is plain PyTorch (matmuls and a
 float32 masked softmax), as the reference's is plain JAX.
 """
 from __future__ import annotations

@@ -8,7 +8,8 @@ function of its inputs.  Norms and RoPE compute in float32 and cast back,
 as the reference does.
 
 M-RoPE (Qwen2-VL) and HuBERT's convolutional position embedding wait for
-ROADMAP.md Queue 1 item 12 and raise ``NotImplementedError``.
+ROADMAP.md Queue 1 item 12(d) with the frontends and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -170,7 +171,7 @@ def apply_rope(
 
 
 def apply_mrope(x, positions, theta: float, sections: Tuple[int, ...]):
-    """Multimodal RoPE (Qwen2-VL): waits for item 12."""
+    """Multimodal RoPE (Qwen2-VL): waits for item 12(d)."""
     raise not_ported("M-RoPE (apply_mrope)")
 
 

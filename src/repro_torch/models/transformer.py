@@ -1,7 +1,8 @@
 """The model stack: embedding -> layer units -> head.
 
-Port of ``repro/models/transformer.py`` for dense attention decoders.
-Three entry points:
+Port of ``repro/models/transformer.py`` for attention and RWKV-6 mixers
+with dense, MoE (the dense path) and RWKV channel-mix MLPs.  Three entry
+points:
   * ``forward``     — full-sequence, no cache.
   * ``prefill``     — full-sequence, returns the last logits + a filled
     decode cache.
@@ -21,9 +22,12 @@ checkpoints the units for the backward as the reference's
 ``jax.checkpoint`` does: ``True`` each unit, ``"layer"`` each unit and
 each layer inside it (``torch.utils.checkpoint``, non-reentrant).
 
-Mamba, RWKV-6 and MoE layers and the audio / vision frontends wait for
-ROADMAP.md Queue 1 item 12: ``init_model`` and the forward paths raise
-``NotImplementedError`` for them.
+The forward paths return the MoE router's load-balance loss summed over
+the layers as the reference sums it (each unit's layers from zero, then
+the units in order, then the tail).  Mamba layers (and so the jamba
+hybrid) and the audio / vision frontends wait for ROADMAP.md Queue 1 item
+12: ``init_model`` and the forward paths raise ``NotImplementedError`` for
+them.
 """
 from __future__ import annotations
 
@@ -38,7 +42,15 @@ from repro_torch.models.attention import (
     init_attention,
 )
 from repro_torch.models.cache import attn_cache_len
-from repro_torch.models.config import MLP_DENSE, MLP_NONE, LayerSpec, ModelConfig
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.config import (
+    MLP_DENSE,
+    MLP_MOE,
+    MLP_NONE,
+    MLP_RWKV,
+    LayerSpec,
+    ModelConfig,
+)
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -48,6 +60,7 @@ from repro_torch.models.layers import (
     not_ported,
     torch_dtype,
 )
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
@@ -63,10 +76,10 @@ class Batch(NamedTuple):
 
 
 def _check_layer(spec: LayerSpec) -> None:
-    if not spec.mixer.startswith("attn"):
+    if not (spec.mixer.startswith("attn") or spec.mixer == "rwkv6"):
         raise not_ported(f"the {spec.mixer} mixer")
-    if spec.mlp not in (MLP_DENSE, MLP_NONE):
-        raise not_ported(f"the {spec.mlp} MLP")
+    if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_RWKV, MLP_NONE):
+        raise ValueError(spec.mlp)
 
 
 def _check_frontend(cfg: ModelConfig) -> None:
@@ -82,10 +95,16 @@ def _check_frontend(cfg: ModelConfig) -> None:
 def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, dtype):
     _check_layer(spec)
     p = {"norm1": init_norm(cfg, dtype, gen.device),
-         "mixer": init_attention(gen, cfg, dtype)}
+         "mixer": (rwkv_mod.init_rwkv_time_mix(gen, cfg, dtype)
+                   if spec.mixer == "rwkv6" else init_attention(gen, cfg, dtype))}
     if spec.mlp != MLP_NONE:
         p["norm2"] = init_norm(cfg, dtype, gen.device)
+    if spec.mlp == MLP_DENSE:
         p["mlp"] = init_mlp(gen, cfg, dtype)
+    elif spec.mlp == MLP_MOE:
+        p["mlp"] = init_moe(gen, cfg, dtype)
+    elif spec.mlp == MLP_RWKV:
+        p["mlp"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg, dtype)
     return p
 
 
@@ -102,10 +121,16 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),
     }
     if cfg.num_units:
-        params["units"] = tree_stack([
-            tuple(init_layer(gen, spec, cfg, dtype) for spec in cfg.unit)
-            for _ in range(cfg.num_units)
-        ])
+        # each unit drawn in turn and copied into its row of the stacked
+        # leaves: the peak is the model and one unit, not the model twice
+        units = None
+        for u in range(cfg.num_units):
+            unit = tuple(init_layer(gen, spec, cfg, dtype) for spec in cfg.unit)
+            if units is None:
+                units = tree_map(lambda t: t.new_empty(
+                    (cfg.num_units,) + tuple(t.shape)), unit)
+            tree_map(lambda dst, src: dst[u].copy_(src), units, unit)
+        params["units"] = units
     params["tail"] = tuple(init_layer(gen, spec, cfg, dtype) for spec in cfg.tail)
     params["final_norm"] = init_norm(cfg, dtype, gen.device)
     if not cfg.tie_embeddings:
@@ -148,20 +173,35 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
                         positions: torch.Tensor, cfg: ModelConfig,
                         collect_cache: bool, max_len: int):
-    """Returns (x, cache_entry_or_None)."""
+    """Returns (x, aux_loss, cache_entry_or_None)."""
     _check_layer(spec)
     h = apply_norm(lp["norm1"], x, cfg)
     cache_entry = None
-    if collect_cache:
+    if spec.mixer == "rwkv6":
+        mixed, tm_state = rwkv_mod.rwkv_time_mix_forward(lp["mixer"], h, cfg)
+        if collect_cache:
+            cache_entry = {"tm": tm_state}
+    elif collect_cache:
         mixed, krot, vrot = attention_forward(lp["mixer"], h, positions, cfg,
                                               spec.mixer, return_kv=True)
         cache_entry = _kv_to_cache(cfg, spec, krot, vrot, positions, max_len)
     else:
         mixed = attention_forward(lp["mixer"], h, positions, cfg, spec.mixer)
     x = x + mixed
-    if spec.mlp == MLP_DENSE:
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
-    return x, cache_entry
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.mlp != MLP_NONE:
+        h2 = apply_norm(lp["norm2"], x, cfg)
+        if spec.mlp == MLP_DENSE:
+            x = x + apply_mlp(lp["mlp"], h2, cfg)
+        elif spec.mlp == MLP_MOE:
+            y, aux = apply_moe(lp["mlp"], h2, cfg)
+            x = x + y
+        else:
+            y, cm_state = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg)
+            x = x + y
+            if cache_entry is not None:
+                cache_entry["cm"] = cm_state
+    return x, aux, cache_entry
 
 
 def _kv_to_cache(cfg, spec, k, v, positions, max_len):
@@ -187,18 +227,37 @@ def _kv_to_cache(cfg, spec, k, v, positions, max_len):
     return {"k": ck, "v": cv, "pos": cp}
 
 
+def _write_state(cache: dict, new: dict) -> None:
+    """Copy a recurrent state's new leaves into the cache's, in place."""
+    for key, leaf in new.items():
+        cache[key].copy_(leaf)
+
+
 def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
                        position: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One token through one layer; ``cache`` is written in place."""
     _check_layer(spec)
     h = apply_norm(lp["norm1"], x, cfg)
-    mixed, _, _, _ = attention_decode(
-        lp["mixer"], h, position, cache["k"], cache["v"], cache["pos"],
-        cfg, spec.mixer,
-    )
+    if spec.mixer == "rwkv6":
+        mixed, tm = rwkv_mod.rwkv_time_mix_step(lp["mixer"], h, cfg, cache["tm"])
+        _write_state(cache["tm"], tm)
+    else:
+        mixed, _, _, _ = attention_decode(
+            lp["mixer"], h, position, cache["k"], cache["v"], cache["pos"],
+            cfg, spec.mixer,
+        )
     x = x + mixed
-    if spec.mlp == MLP_DENSE:
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg), cfg)
+    if spec.mlp != MLP_NONE:
+        h2 = apply_norm(lp["norm2"], x, cfg)
+        if spec.mlp == MLP_DENSE:
+            x = x + apply_mlp(lp["mlp"], h2, cfg)
+        elif spec.mlp == MLP_MOE:
+            x = x + apply_moe(lp["mlp"], h2, cfg)[0]
+        else:
+            y, cm = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg,
+                                                      state=cache["cm"])
+            _write_state(cache["cm"], cm)
+            x = x + y
     return x
 
 
@@ -229,41 +288,46 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_forward(unit_params, x, positions, cfg, collect_cache, max_len):
-    """One unit's layers in order: returns (x, caches)."""
+    """One unit's layers in order: returns (x, aux, caches)."""
     remat_layers = (cfg.remat == "layer" and not collect_cache
                     and torch.is_grad_enabled())
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i, spec in enumerate(cfg.unit):
         if remat_layers:
             # per-layer checkpoint: the unit's backward re-materializes one
             # layer's internals at a time instead of the whole unit's
-            x = checkpoint(lambda lp, xin, _s=spec: apply_layer_forward(
-                lp, _s, xin, positions, cfg, False, 0)[0],
+            x, aux = checkpoint(lambda lp, xin, _s=spec: apply_layer_forward(
+                lp, _s, xin, positions, cfg, False, 0)[:2],
                 unit_params[i], x, use_reentrant=False)
-            caches.append(None)
+            ce = None
         else:
-            x, ce = apply_layer_forward(unit_params[i], spec, x, positions, cfg,
-                                        collect_cache, max_len)
-            caches.append(ce)
-    return x, tuple(caches)
+            x, aux, ce = apply_layer_forward(unit_params[i], spec, x, positions,
+                                             cfg, collect_cache, max_len)
+        aux_total = aux_total + aux
+        caches.append(ce)
+    return x, aux_total, tuple(caches)
 
 
 def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
-    """The units in order, then the tail layers."""
+    """The units in order, then the tail layers: (x, aux, unit caches,
+    tail caches)."""
     per_unit: List[Tuple] = []
     remat = bool(cfg.remat) and not collect_cache and torch.is_grad_enabled()
     units = unbind_units(params["units"], cfg.num_units) if cfg.num_units else []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_params in units:
         if remat:
             # the unit's checkpoint; with remat == "layer" the inner
             # per-layer checkpoints bound the re-backward's working set
-            x = checkpoint(lambda up, xin: _unit_forward(
-                up, xin, positions, cfg, False, 0)[0],
+            x, aux = checkpoint(lambda up, xin: _unit_forward(
+                up, xin, positions, cfg, False, 0)[:2],
                 unit_params, x, use_reentrant=False)
         else:
-            x, caches = _unit_forward(unit_params, x, positions, cfg,
-                                      collect_cache, max_len)
+            x, aux, caches = _unit_forward(unit_params, x, positions, cfg,
+                                           collect_cache, max_len)
             per_unit.append(caches)
+        aux_total = aux_total + aux
     unit_caches = ()
     if collect_cache and cfg.num_units:
         unit_caches = tuple(
@@ -272,21 +336,22 @@ def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
         )
     tail_caches = []
     for i, spec in enumerate(cfg.tail):
-        x, ce = apply_layer_forward(params["tail"][i], spec, x, positions, cfg,
-                                    collect_cache, max_len)
+        x, aux, ce = apply_layer_forward(params["tail"][i], spec, x, positions,
+                                         cfg, collect_cache, max_len)
+        aux_total = aux_total + aux
         tail_caches.append(ce)
-    return x, unit_caches, tuple(tail_caches)
+    return x, aux_total, unit_caches, tuple(tail_caches)
 
 
 def forward(params, cfg: ModelConfig, batch: Batch):
     """Full-sequence forward: returns (logits, aux_loss); the aux loss is
-    the MoE router's, 0 for the dense layers ported here."""
+    the MoE routers' load-balance loss (0 without MoE layers)."""
     x = embed_inputs(params, cfg, batch)
     positions = batch.positions
     if positions is None:
         positions = _default_positions(x)
-    x, _, _ = _stack_forward(params, cfg, x, positions, False, 0)
-    return lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux, _, _ = _stack_forward(params, cfg, x, positions, False, 0)
+    return lm_logits(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, batch: Batch, max_len: int):
@@ -295,8 +360,8 @@ def prefill(params, cfg: ModelConfig, batch: Batch, max_len: int):
     positions = batch.positions
     if positions is None:
         positions = _default_positions(x)
-    x, unit_caches, tail_caches = _stack_forward(params, cfg, x, positions,
-                                                 True, max_len)
+    x, _, unit_caches, tail_caches = _stack_forward(params, cfg, x, positions,
+                                                    True, max_len)
     logits = lm_logits(params, cfg, x[:, -1:])
     return logits, {"units": unit_caches, "tail": tail_caches}
 

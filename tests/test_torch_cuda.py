@@ -532,3 +532,48 @@ def test_checkpoint_roundtrip_from_the_card(cuda, tmp_path):
         {"q": blob["q"].cpu(), "scales": blob["scales"].cpu(), "d": blob["d"]})
     for k in params:
         assert torch.equal(decoded[k].cpu(), plain[k])
+
+
+@pytest.mark.parametrize("chunk", (1, 2, 4))
+@pytest.mark.parametrize("P", (8, 5))
+def test_trainer_rows_on_the_card_independent_of_call_size(cuda, P, chunk):
+    """test_torch_trainer_invariance's check on the card, at atol 0."""
+    import numpy as np
+
+    from repro_torch.fl.adapter import femnist_adapter
+    from repro_torch.fl.client import make_local_train_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(7)
+    xs = torch.from_numpy(rng.normal(size=(P, 3, 8, 28, 28, 1))
+                          .astype(np.float32)).to(cuda)
+    ys = torch.from_numpy(rng.integers(0, 62, (P, 3, 8))).to(cuda)
+    adapter = femnist_adapter(8)
+    params = tree_map(lambda a: a.to(cuda),
+                      adapter.init(torch.Generator().manual_seed(0)))
+    train = make_local_train_fn(adapter, 0.05, 0.9)
+    whole = train(params, xs, ys)
+    parts = tree_map(lambda *l: torch.cat(l), *[
+        train(params, xs[i:i + chunk], ys[i:i + chunk])
+        for i in range(0, P, chunk)])
+    for a, b in zip(tree_leaves(parts), tree_leaves(whole)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", ((3, 70, 9, 32), (2, 5, 3136, 128),
+                                   (4, 288, 130, 64)))
+def test_client_gemm_matches_per_client_mm(cuda, shape):
+    from repro_torch.kernels.client_gemm import client_gemm_kernel, client_gemm_ref
+
+    P, M, K, N = shape
+    g = torch.Generator().manual_seed(M + K)
+    a = torch.randn((P, K, M), generator=g).transpose(1, 2)    # strided A
+    b = torch.randn((P, K, N), generator=g)
+    bias = torch.randn((P, N), generator=g)
+    got = client_gemm_kernel(a.to(cuda), b.to(cuda), bias.to(cuda)).cpu()
+    want = client_gemm_ref(a.double(), b.double(), bias.double())
+    scale = client_gemm_ref(a.abs().double(), b.abs().double()) + bias.abs().double()[:, None]
+    assert float(((got.double() - want).abs() / scale).max()) <= K * 2 ** -23
+    # one client's rows alone are the same bits
+    alone = client_gemm_kernel(a[1:2].to(cuda), b[1:2].to(cuda), bias[1:2].to(cuda))
+    assert torch.equal(alone.cpu(), got[1:2])

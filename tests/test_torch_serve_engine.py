@@ -172,6 +172,23 @@ def test_insert_slot_cache_writes_one_row(cfg):
         assert torch.equal(new[0], old[0])
 
 
+def test_insert_slot_cache_overwrites_a_recurrent_state():
+    """An RWKV-6 cache's rows hold a state, not positions: inserting a
+    request overwrites every leaf of its row (time-mix shift and wkv,
+    channel-mix shift), so nothing of the slot's last request is left."""
+    rcfg = registry.smoke_config("rwkv6-7b")
+    big = tree_map(lambda t: torch.full_like(t, 3),
+                   init_cache(rcfg, 3, MAX_LEN, torch.float32))
+    small = tree_map(lambda t: torch.full_like(t, 7),
+                     init_cache(rcfg, 1, MAX_LEN, torch.float32))
+    out = insert_slot_cache(big, small, 2)
+    leaves = tree_leaves(out["units"])
+    assert len(leaves) == 3 and leaves[0].dtype == torch.float32
+    for leaf in leaves:
+        assert torch.equal(leaf[:, 2], torch.full_like(leaf[:, 2], 7))
+        assert torch.equal(leaf[:, :2], torch.full_like(leaf[:, :2], 3))
+
+
 def test_decode_step_logits_optin(cfg, params):
     with_logits = make_decode_step(cfg)
     no_logits = make_decode_step(cfg, return_logits=False)
@@ -589,3 +606,60 @@ def test_serve_cli_needs_cuda_unless_told_cpu():
         pytest.skip("CUDA is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--smoke"])
+
+
+# ----------------------------------------------------------------------------
+# recurrent and MoE models behind the engine
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "qwen3-moe-30b-a3b"])
+def test_rwkv_and_moe_engines_match_reference(arch):
+    """The smoke configs of RWKV-6 (a recurrent decode state) and the MoE
+    (dense path) behind both engines on one VirtualClock trace of two
+    slots, each slot serving several requests in turn: every request
+    equal to its oracles (a finished request's state leaks into no later
+    one) and the reference's service tick for tick, token for token.  The
+    reference runs its MoE on the dense path (``moe_impl="dense"``), the
+    port's only one."""
+    import dataclasses
+
+    cfg = registry.smoke_config(arch)
+    jcfg = jreg.smoke_config(arch)
+    if jcfg.num_experts:
+        jcfg = dataclasses.replace(jcfg, moe_impl="dense")
+    ref_np = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(3), jcfg))
+    jp, params = jax.tree.map(jnp.asarray, ref_np), from_numpy_tree(ref_np)
+    kw = dict(num_requests=6, rate=1.0, prompt_lens=(8, 12), gen_lens=(3, 8),
+              vocab_size=cfg.vocab_size, seed=4)
+    trace, jtrace = make_poisson_trace(**kw), j_make_poisson_trace(**kw)
+    port_rep = ServeEngine(cfg, params, num_slots=2, max_len=MAX_LEN,
+                           device="cpu").run(trace, policy="continuous",
+                                             clock=VirtualClock())
+    slots = [r.slot for r in port_rep.results]
+    assert max(slots.count(s) for s in set(slots)) >= 3   # slots are reused
+    for res, req in zip(port_rep.results, trace):
+        assert oracles_hold(cfg, params, res, req, 2), (arch, res.rid)
+    ref_rep = JServeEngine(jcfg, jp, num_slots=2, max_len=MAX_LEN).run(
+        jtrace, policy="continuous", clock=JVirtualClock())
+    mesh = make_host_mesh(1, 1)
+    pol = ShardingPolicy(dp_axes=("data",), dp_sizes=(1,), model_axis_size=1,
+                         fsdp=False)
+    steps = (jax.jit(j_make_prefill(jcfg, mesh, pol, max_len=MAX_LEN)),
+             jax.jit(j_make_decode(jcfg, mesh, pol)))
+    assert_same_service(port_rep, ref_rep, steps, {0: jp}, jtrace)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "mixtral-8x7b"])
+def test_serve_cli_serves_recurrent_and_moe_archs(arch, capsys):
+    import json
+
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
+          "--prompt-lens", "8", "16", "--gen-lens", "4", "6", "--max-len",
+          "24"])
+    out = capsys.readouterr().out
+    assert out.startswith(f"# continuous serving, {arch} (smoke), slots=4")
+    metrics = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    assert metrics["requests"] == 4 and metrics["generated_tokens"] >= 16

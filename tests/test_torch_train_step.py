@@ -5,7 +5,11 @@ AdamW state and step cross to the port through ``repro_torch.convert``,
 and the same numpy tokens go to both.  Four dense smoke configs: olmo-1b
 (non-parametric LayerNorm, tied embeddings), qwen1.5-4b (QKV bias),
 phi4-mini (GQA, SwiGLU) and gemma3-4b (GeGLU, scaled embeddings, local /
-global attention, a tail).
+global attention, a tail); and mixtral-8x7b and qwen3-moe-30b-a3b, whose
+MoE router's load-balance loss is part of the loss and its gradients,
+and rwkv6-7b.  The port's MoE is the dense path, so the reference runs
+its MoE configs with ``moe_impl="dense"`` (on its host mesh ``"auto"``
+would take the expert-parallel path, whose capacity can drop tokens).
 
 Tolerances (float32 in both; the matmuls sum in another order than
 XLA's):
@@ -23,6 +27,17 @@ XLA's):
     flip the sign of Adam's normalized update (about ``lr`` either way),
     so such a comparison would measure rounding, not the step.  The
     default eps is held on identical gradients in test_torch_optim.py.
+
+The three non-dense archs are held to tolerances of their own
+(``NON_DENSE_TOL``).  RWKV-6's float32 gradients are ill-conditioned in
+both packages (the chunked WKV's exponentials of cumulative decays, the
+per-head group norm's division by a small spread): the two packages'
+gradients sit further apart than the dense archs' 1e-5, and each as far
+from a float64 gradient of the same loss.  Over the three AdamW steps
+(eps 1e-3, lr 1e-2) a gradient gap g moves a param by up to about
+3 * lr * g / eps, and the MoE archs' bflc committee weights magnify a
+loss's last bits as the dense archs' do: hence the looser param, moment
+and loss tolerances of these cases.
 """
 import jax
 import jax.numpy as jnp
@@ -52,10 +67,13 @@ from repro_torch.tree import tree_paths
 
 torch.set_num_threads(2)
 DENSE = ("olmo-1b", "qwen1.5-4b", "phi4-mini-3.8b", "gemma3-4b")
+NON_DENSE = ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b")
 B, S = 8, 16
 LOSS_RTOL = 1e-6
 GRAD_RTOL = {"standard": 1e-5, "bflc": 3e-4}
 PARAM_ATOL = 3e-5
+NON_DENSE_TOL = dict(loss_rtol=1e-5, grad_rtol={"standard": 1e-4, "bflc": 3e-4},
+                     param_atol=1e-3, moment_rtol=1e-3)
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +93,14 @@ def ref_params():
         return cache[arch]
 
     return get
+
+
+def _ref_cfg(arch):
+    """The reference's smoke config, its MoE on the dense path."""
+    import dataclasses
+
+    cfg = jreg.smoke_config(arch)
+    return dataclasses.replace(cfg, moe_impl="dense") if cfg.num_experts else cfg
 
 
 def _tokens(vocab, rows, seed):
@@ -130,12 +156,12 @@ def test_token_ce_matches_reference():
 
 
 @pytest.mark.parametrize("committee", [4, 3])
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ("olmo-1b", "gemma3-4b") + NON_DENSE)
 def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
                                           ref_params):
     """standard_loss and bflc_loss (Q even and odd) and their gradients."""
     mesh, pol = mesh_pol
-    jcfg, cfg = jreg.smoke_config(arch), registry.smoke_config(arch)
+    jcfg, cfg = _ref_cfg(arch), registry.smoke_config(arch)
     ctx = jsteps.make_moe_ctx(jcfg, mesh, pol, batch_sharded=True)
     p_np = ref_params(arch)
     mask = np.ones((B, S), np.float32)
@@ -156,7 +182,11 @@ def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
         tg, ttot, tce = grad_fn(from_numpy_tree(p_np), tb, tv)
         np.testing.assert_allclose(float(ttot), float(jtot), rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(tce), float(jce), rtol=LOSS_RTOL)
-        _assert_leafwise(tg, jg, GRAD_RTOL[mode], f"{mode} grads")
+        rtol = (NON_DENSE_TOL["grad_rtol"] if arch in NON_DENSE
+                else GRAD_RTOL)[mode]
+        _assert_leafwise(tg, jg, rtol, f"{mode} grads")
+        if jcfg.num_experts:     # the router's aux loss is in the total
+            assert float(ttot) - float(tce) > 0.0
 
 
 def _reference_weights(jcfg, p, jb, jv, ctx, C, Q):
@@ -251,10 +281,13 @@ def _opts(lr=1e-2):
 
 
 @pytest.mark.parametrize("mode", ["standard", "bflc"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + NON_DENSE)
 def test_train_step_matches_reference(arch, mode, mesh_pol, ref_params):
+    tol = (NON_DENSE_TOL if arch in NON_DENSE else
+           dict(loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
+                param_atol=PARAM_ATOL, moment_rtol=GRAD_RTOL[mode]))
     mesh, pol = mesh_pol
-    jcfg, cfg = jreg.smoke_config(arch), registry.smoke_config(arch)
+    jcfg, cfg = _ref_cfg(arch), registry.smoke_config(arch)
     jopt, opt = _opts()
     jstep = jax.jit(jsteps.make_train_step(jcfg, jopt, mesh, pol, mode=mode,
                                            num_cohorts=4, committee_size=4))
@@ -271,17 +304,17 @@ def test_train_step_matches_reference(arch, mode, mesh_pol, ref_params):
         ts, tm = step(ts, tb, tv if mode == "bflc" else None)
         for key in ("loss", "total_loss"):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]),
-                                       rtol=LOSS_RTOL)
+                                       rtol=tol["loss_rtol"])
     assert int(ts.step) == int(js.step) == 3
     params, opt_state, step_np = train_state_to_numpy(ts)
     assert step_np.dtype == np.int32 and int(step_np) == 3
     ref = _key_paths(n(js.params))
     for path, t in tree_paths(ts.params):
         np.testing.assert_allclose(t.numpy(), ref[path], rtol=0,
-                                   atol=PARAM_ATOL, err_msg=str(path))
+                                   atol=tol["param_atol"], err_msg=str(path))
     for key in ("m", "v"):
         _assert_leafwise(ts.opt_state[key], js.opt_state[key],
-                         GRAD_RTOL[mode], key)
+                         tol["moment_rtol"], key)
 
 
 def test_first_step_moves_nothing():
