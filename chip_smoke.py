@@ -10,8 +10,8 @@ Phases, one JSON line each:
   build    nvcc of every CUDA source under src/repro_torch/kernels/csrc,
            in parallel, with the build seconds and ptxas's registers, stack
            and spills for every kernel; the sort networks and every
-           instance of the fused aggregation must use no stack and spill
-           nothing
+           instance of the fused aggregation and of client_gemm must use
+           no stack and spill nothing
   kernel   each kernel against its plain PyTorch version (run on CPU copies
            of the same inputs) at the shapes its path gives it and at edge
            shapes (ragged D, all-zero tiles, exact half steps, K from 1 to
@@ -34,13 +34,21 @@ Phases, one JSON line each:
            f32 one no path runs, the fused one runs on tiered_int8_cwmed's
            slices at their own K (``kernel_path``)
            The local trainer's per-client products (client_gemm) have a
-           row for each of four forms at the full-width shapes (conv2
-           forward, conv2 and conv1 weight gradients read through a
-           transposed view, fc1 forward), against one torch.mm a client
-           within the f32 dot-product bound K * 2^-23 * sum |a||b|
+           row for each of the eleven calls of one SGD step at the
+           full-width shapes (GEMM_FORMS: four forwards, three input
+           gradients and four weight gradients with their bias gradients
+           folded in as a ones row, the backward's transposes read in
+           place), against one torch.mm a client within the f32
+           dot-product bound K * 2^-23 * sum |a||b|, and on clients 0 and
+           1, called as P = 2, equal by value to the exact-order
+           client_gemm_ordered_ref (with its host seconds) and bit for bit
+           to the P = 54 call; ``variant`` names the path and tile, and
+           ``library_ms`` times bmm or baddbmm on the same operands, for
+           a folded form bmm and B's row sum (``library_call``)
   trainer_invariance  the flat path's local trainer (P = 54, width 32, 20
            steps of batch 32) whole and in consecutive calls of 27, 8 and
            1 clients: every client's update bit for bit the whole call's;
+           ``trainer_launches``: len(GEMM_FORMS) client_gemm calls a step;
            ``trainer_cost`` the flat int8 path's train stage with this
            trainer and with the per-client program vmapped, in turns
   paths    full-width rounds through repro_torch.api (FEMNIST CNN width 32,
@@ -250,6 +258,39 @@ KERNELS = {
     "client_gemm": ("client_gemm.cu", "src/repro/fl/client.py:56"),
 }
 TRAINER_KERNEL = "client_gemm"
+# the FEMNIST CNN's client_gemm calls in one SGD step at width 32, batch
+# 32: (form, (M, K, N) a client, A transposed, B transposed, bias, ones
+# row).  conv1's input needs no gradient; each bias gradient is the ones
+# row of its weight gradient's call.
+GEMM_FORMS = (
+    ("conv1 forward", (32 * 784, 9, 32), False, False, True, False),
+    ("conv1 weight and bias gradient", (9, 32 * 784, 32), True, False, False, True),
+    ("conv2 forward", (32 * 196, 288, 64), False, False, True, False),
+    ("conv2 input gradient", (32 * 196, 64, 288), False, True, False, False),
+    ("conv2 weight and bias gradient", (288, 32 * 196, 64), True, False, False, True),
+    ("fc1 forward", (32, 3136, 128), False, False, True, False),
+    ("fc1 input gradient", (32, 128, 3136), False, True, False, False),
+    ("fc1 weight and bias gradient", (3136, 32, 128), True, False, False, True),
+    ("fc2 forward", (32, 128, 62), False, False, True, False),
+    ("fc2 input gradient", (32, 62, 128), False, True, False, False),
+    ("fc2 weight and bias gradient", (128, 32, 62), True, False, False, True),
+)
+
+
+def gemm_operands(form, g):
+    """A GEMM_FORMS entry's operands at P = MAIN_P on the card, drawn from
+    ``g``: A (B) a transposed view where the form says, as ClientLinear
+    passes them; the bias None where the form has none."""
+    import torch
+
+    _, (M, K, N), a_t, b_t, with_bias, _ = form
+    a = (torch.randn((MAIN_P, K, M), generator=g, device="cuda").transpose(1, 2)
+         if a_t else torch.randn((MAIN_P, M, K), generator=g, device="cuda"))
+    b = (torch.randn((MAIN_P, N, K), generator=g, device="cuda").transpose(1, 2)
+         if b_t else torch.randn((MAIN_P, K, N), generator=g, device="cuda"))
+    bias = (torch.randn((MAIN_P, N), generator=g, device="cuda")
+            if with_bias else None)
+    return a, b, bias
 
 
 def emit(**fields) -> None:
@@ -397,7 +438,9 @@ def phase_card():
 
 def ptxas_report(log: str) -> dict:
     """kernel -> registers, stack and spill bytes, from ``nvcc -Xptxas -v``
-    output; names demangled as far as ``repro::name<int>``."""
+    output; names demangled as far as ``repro::name<int, ...>``, the
+    integer template arguments in order, those of a class argument too
+    (``client_gemm_tile_kernel<BM,BN,BK,TM,TN,STAGES,MINB,A_K,B_K,ONES>``)."""
     out = {}
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
@@ -408,9 +451,10 @@ def ptxas_report(log: str) -> dict:
         if n:
             rest = name[n.end():]
             base = rest[:int(n.group(1))]
-            t = re.match(r"I((?:L[a-z]\d+E)+)E", rest[len(base):])
-            name = (f"{base}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(1)))}>"
-                    if t else base)
+            t = rest[len(base):]
+            args = (re.findall(r"L[a-z](\d+)E", t[:t.find("Ev")])
+                    if t.startswith("I") else [])
+            name = f"{base}<{','.join(args)}>" if args else base
         out[name] = {"registers": int(m.group(5)), "stack": int(m.group(2)),
                      "spill_stores": int(m.group(3)),
                      "spill_loads": int(m.group(4))}
@@ -440,6 +484,14 @@ def phase_build():
     for name, use in fused.items():
         check(use["stack"] == 0 and use["spill_stores"] == 0
               and use["spill_loads"] == 0, f"{name} uses stack or spills: {use}")
+    # every path of the trainer's products: its tiles and the stream pass
+    gemm = ptxas["client_gemm"]
+    check(any(n.startswith("client_gemm_tile_kernel<") for n in gemm)
+          and "client_gemm_stream_kernel" in gemm,
+          f"ptxas reported {sorted(gemm)}")
+    for name, use in gemm.items():
+        check(use["stack"] == 0 and use["spill_stores"] == 0
+              and use["spill_loads"] == 0, f"{name} uses stack or spills: {use}")
 
 
 def phase_kernels():
@@ -448,7 +500,10 @@ def phase_kernels():
 
     from repro_torch.core.aggregation import normalize_weights
     from repro_torch.kernels import ops
-    from repro_torch.kernels.client_gemm import client_gemm_kernel, client_gemm_ref
+    from repro_torch.kernels.client_gemm import (
+        client_gemm_kernel, client_gemm_ordered_ref, client_gemm_path,
+        client_gemm_ref,
+    )
     from repro_torch.kernels.cwmed import (
         _CWMED, _TRIMMED_MEAN, _launch_sort, cwmed_kernel, cwmed_ref,
         median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
@@ -485,10 +540,12 @@ def phase_kernels():
 
     def row(name, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
             library=None, edge=None, variant=None, alternatives=None,
-            form=None):
+            form=None, extra=None, library_call=None):
         """``alternatives``: {variant: fn} other designs of the kernel,
         checked and timed in the same run beside it; ``form``: which of a
-        kernel's forms the row times."""
+        kernel's forms the row times; ``extra``: () -> dict of more
+        fields, run after the timings; ``library_call``: what ``library``
+        calls, where a row says."""
         want = plain(*cpu_args)
         got = fn(*gpu_args)
         torch.cuda.synchronize()
@@ -507,6 +564,7 @@ def phase_kernels():
             "plain_ms": time_ms(lambda: plain(*gpu_args)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(library) if library else None,
+            "library_call": library_call,
             "shape": [list(a.shape) for a in gpu_args if hasattr(a, "shape")],
         }
         entry["alternatives"] = []
@@ -519,6 +577,8 @@ def phase_kernels():
                 "cold_ms": cold_ms(alt_fn, gpu_args)})
         if edge is not None:
             entry["edge_cases"], entry["edge_max_abs_err"] = edge()
+        if extra is not None:
+            entry.update(extra())
         emit(phase="kernel", **entry)
         rows.append(entry)
 
@@ -752,32 +812,52 @@ def phase_kernels():
             a, _TRIMMED_MEAN, 1, force_shared=True)})
 
     # the local trainer's per-client products at the main path's shapes
-    # (P = 54 clients, batch 32, width 32): two forward products and the
-    # two weight gradients that read a transposed operand in place.  The
-    # plain version sums in another order (one torch.mm a client), so the
-    # tolerance is the f32 dot-product bound K * 2^-23 * (sum |a||b| + |bias|)
-    bs = 32
-    for form, (M_, K_, N_), transposed, with_bias in (
-            ("conv2 forward", (bs * 196, 288, 64), False, True),
-            ("conv2 weight gradient", (288, bs * 196, 64), True, False),
-            ("conv1 weight gradient", (9, bs * 784, 32), True, False),
-            ("fc1 forward", (bs, 3136, 128), False, True)):
-        a_ = (torch.randn((MAIN_P, K_, M_), generator=g, device="cuda")
-              .transpose(1, 2) if transposed else
-              torch.randn((MAIN_P, M_, K_), generator=g, device="cuda"))
-        b_ = torch.randn((MAIN_P, K_, N_), generator=g, device="cuda")
-        bias_ = (torch.randn((MAIN_P, N_), generator=g, device="cuda")
-                 if with_bias else None)
+    # (P = 54 clients, batch 32, width 32): GEMM_FORMS, the eleven calls of
+    # one SGD step, operands as ClientLinear passes them (the backward's
+    # transposes read in place).  The plain version sums in another order
+    # (one torch.mm a client), so the tolerance is the f32 dot-product
+    # bound K * 2^-23 * (sum |a||b| + |bias|); the exact-order version
+    # (client_gemm_ordered_ref, on the host) must equal the kernel by value
+    # on clients 0 and 1 at the full per-client shape, called as P = 2
+    for form_ in GEMM_FORMS:
+        form, (M_, K_, N_), _, _, with_bias, ones = form_
+        a_, b_, bias_ = gemm_operands(form_, g)
         cpu_ = tuple(t.cpu() if t is not None else None for t in (a_, b_, bias_))
-        scale = float(client_gemm_ref(cpu_[0].abs(), cpu_[1].abs()).max())
+        fn = functools.partial(client_gemm_kernel, ones_row=ones)
+        plain = functools.partial(client_gemm_ref, ones_row=ones)
+        scale = float(plain(cpu_[0].abs(), cpu_[1].abs()).max())
         scale += float(cpu_[2].abs().max()) if with_bias else 0.0
-        row("client_gemm", client_gemm_kernel, client_gemm_ref, cpu_,
-            (a_, b_, bias_), K_ * 2.0 ** -23 * scale,
-            f32 * MAIN_P * (M_ * K_ + K_ * N_ + M_ * N_ + N_ * with_bias),
-            2 * MAIN_P * M_ * N_ * K_,
-            library=(lambda a=a_, b=b_, c=bias_: torch.baddbmm(c[:, None], a, b)
-                     if c is not None else torch.bmm(a, b)),
-            form=form)
+        if ones:
+            # no one call folds the bias gradient: bmm on the trainer's own
+            # operands (A a transposed view) and the sum over B's rows
+            library = lambda a=a_, b=b_: (torch.bmm(a, b), b.sum(1))
+        elif with_bias:
+            library = lambda a=a_, b=b_, c=bias_: torch.baddbmm(c[:, None], a, b)
+        else:
+            library = lambda a=a_, b=b_: torch.bmm(a, b)
+
+        def ordered(a=a_, b=b_, c=bias_, cpu=cpu_, fn=fn, ones=ones):
+            t0 = time.perf_counter()
+            want = client_gemm_ordered_ref(
+                cpu[0][:2], cpu[1][:2], None if c is None else cpu[2][:2],
+                ones_row=ones)
+            seconds = time.perf_counter() - t0
+            two = fn(a[:2], b[:2], None if c is None else c[:2]).cpu()
+            whole = fn(a, b, c)[:2].cpu()
+            equal = torch.equal(two, want) and same_bits(whole, two)
+            check(equal, f"client_gemm {form}: P = 2 differs from the "
+                         f"exact-order version or from the P = 54 call")
+            return {"ordered_p2_equal": equal, "ordered_p2_seconds": seconds}
+
+        Mo = M_ + ones
+        row("client_gemm", fn, plain, cpu_, (a_, b_, bias_),
+            K_ * 2.0 ** -23 * scale,
+            f32 * MAIN_P * (M_ * K_ + K_ * N_ + Mo * N_ + N_ * with_bias),
+            2 * MAIN_P * Mo * N_ * K_, library=library, form=form,
+            variant=client_gemm_path(a_, b_, ones), extra=ordered,
+            library_call=("bmm + sum(1)" if ones else
+                          "baddbmm" if with_bias else "bmm"))
+        del a_, b_, bias_, cpu_
 
     # the shared-memory sort at a full Basic-FL cohort's K, which no path
     # runs (the baselines aggregate with the plain reductions)
@@ -940,6 +1020,7 @@ def phase_trainer_invariance(ds) -> None:
     from repro_torch.device import to_device
     from repro_torch.fl.adapter import femnist_adapter
     from repro_torch.fl.client import flatten_stacked_updates, sample_client_batches
+    from repro_torch.kernels.client_gemm import client_gemm_kernel
 
     rt = build(ds, {"quantize_chain": True, "use_kernels": True})
     cfg = rt.cfg
@@ -956,7 +1037,13 @@ def phase_trainer_invariance(ds) -> None:
         return flatten_stacked_updates(rt._local_train(params, xs[lo:hi],
                                                        ys[lo:hi]))
 
+    launched = client_gemm_kernel.launches
     whole = train(0, MAIN_P)
+    calls = (client_gemm_kernel.launches - launched) / cfg.local_steps
+    emit(phase="trainer_launches", clients=MAIN_P, steps=cfg.local_steps,
+         client_gemm_a_step=calls)
+    check(calls == len(GEMM_FORMS), f"client_gemm calls a step: {calls}, "
+                                    f"want {len(GEMM_FORMS)}")
     for n in TRAINER_CALLS:
         parts = torch.cat([train(i, i + n) for i in range(0, MAIN_P, n)])
         rows = (parts != whole).any(dim=1)

@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "client_gemm": {
         "repro_client_gemm": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P,
-                              _P, _I, _I, _I, _I, _I, _I, _P],
+                              _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -560,20 +560,99 @@ def test_trainer_rows_on_the_card_independent_of_call_size(cuda, P, chunk):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", ((3, 70, 9, 32), (2, 5, 3136, 128),
-                                   (4, 288, 130, 64)))
-def test_client_gemm_matches_per_client_mm(cuda, shape):
-    from repro_torch.kernels.client_gemm import client_gemm_kernel, client_gemm_ref
+# (P, M, K, N): every path of the kernel (csrc/client_gemm.cu
+# `launch_layout`): the stream pass (K <= 16), the 128 x 64 and 128 x 96
+# tiles (M >= 512), the 32 x 128 thin forward tile, the 48 x 64, 64 x 64
+# and 16 x 32 weight-gradient tiles (A transposed),
+# the 32 x 64 tile for the rest; M = 1 and 9, K on every side of the split
+# (SPLIT_K = 2048) and conv1's 25,088, N = 62 and 288
+GEMM_SHAPES = ((3, 70, 9, 32), (2, 5, 3136, 128), (4, 288, 130, 64),
+               (2, 1, 2047, 62), (2, 9, 2048, 288), (2, 9, 2049, 62),
+               (2, 9, 25088, 32), (3, 600, 288, 64), (2, 700, 64, 288),
+               (2, 128, 100, 64), (2, 40, 300, 288))
+
+
+def _offset(t):
+    """A contiguous copy of t whose base is 4 bytes past a 16-byte line."""
+    out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("layout", ("nn", "tn", "nt", "tt", "offset"))
+@pytest.mark.parametrize("ones_row", (False, True))
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_client_gemm_matches_per_client_mm(cuda, shape, ones_row, layout):
+    """Every path equals the exact-order plain version by value (a zero
+    sum's sign may differ), is within the f32 dot-product bound of a
+    float64 product, and gives one client alone the same bits."""
+    from repro_torch.kernels.client_gemm import (
+        client_gemm_kernel, client_gemm_ordered_ref, client_gemm_ref,
+    )
 
     P, M, K, N = shape
-    g = torch.Generator().manual_seed(M + K)
-    a = torch.randn((P, K, M), generator=g).transpose(1, 2)    # strided A
-    b = torch.randn((P, K, N), generator=g)
+    g = torch.Generator().manual_seed(M + K + N)
+    a = (torch.randn((P, K, M), generator=g).transpose(1, 2)
+         if layout[0] == "t" else torch.randn((P, M, K), generator=g))
+    b = (torch.randn((P, N, K), generator=g).transpose(1, 2)
+         if layout[1:] == "t" else torch.randn((P, K, N), generator=g))
     bias = torch.randn((P, N), generator=g)
-    got = client_gemm_kernel(a.to(cuda), b.to(cuda), bias.to(cuda)).cpu()
-    want = client_gemm_ref(a.double(), b.double(), bias.double())
-    scale = client_gemm_ref(a.abs().double(), b.abs().double()) + bias.abs().double()[:, None]
+    ag, bg = a.to(cuda), b.to(cuda)
+    if layout == "offset":
+        ag, bg = _offset(ag), _offset(bg)
+    got = client_gemm_kernel(ag, bg, bias.to(cuda), ones_row=ones_row).cpu()
+    exact = client_gemm_ordered_ref(a, b, bias, ones_row=ones_row)
+    assert torch.equal(got, exact)
+    want = client_gemm_ref(a.double(), b.double(), bias.double(), ones_row=ones_row)
+    scale = (client_gemm_ref(a.abs().double(), b.abs().double(), ones_row=ones_row)
+             + bias.abs().double()[:, None])
     assert float(((got.double() - want).abs() / scale).max()) <= K * 2 ** -23
     # one client's rows alone are the same bits
-    alone = client_gemm_kernel(a[1:2].to(cuda), b[1:2].to(cuda), bias[1:2].to(cuda))
-    assert torch.equal(alone.cpu(), got[1:2])
+    alone = client_gemm_kernel(ag[1:2], bg[1:2], bias[1:2].to(cuda),
+                               ones_row=ones_row)
+    assert torch.equal(alone.cpu().view(torch.int32), got[1:2].view(torch.int32))
+
+
+# the trainer's eleven products a step at width 32, batch 32: (M, K, N) a
+# client, A transposed, B transposed, ones row, and the path each takes
+TRAINER_GEMM_PATHS = (
+    ((25088, 9, 32), False, False, False, "stream, A along k 16 B, B along n 16 B, 1 chunk"),
+    ((9, 25088, 32), True, False, True, "tile 16x32, A along m, B along n 16 B, 49 chunks"),
+    ((6272, 288, 64), False, False, False, "tile 128x64, A along k 16 B, B along n 16 B, 1 chunk"),
+    ((6272, 64, 288), False, True, False, "tile 128x96, A along k 16 B, B along k 16 B, 1 chunk"),
+    ((288, 6272, 64), True, False, True, "tile 48x64, A along m 16 B, B along n 16 B, 13 chunks"),
+    ((32, 3136, 128), False, False, False, "tile 32x128, A along k 16 B, B along n 16 B, 7 chunks"),
+    ((32, 128, 3136), False, True, False, "tile 32x64, A along k 16 B, B along k 16 B, 1 chunk"),
+    ((3136, 32, 128), True, False, True, "tile 64x64, A along m 16 B, B along n 16 B, 1 chunk"),
+    ((32, 128, 62), False, False, False, "tile 32x64, A along k 16 B, B along n, 1 chunk"),
+    ((32, 62, 128), False, True, False, "tile 32x64, A along k, B along k, 1 chunk"),
+    ((128, 32, 62), True, False, True, "tile 32x64, A along m 16 B, B along n, 1 chunk"),
+)
+
+
+@pytest.mark.parametrize("form", TRAINER_GEMM_PATHS)
+def test_client_gemm_path_of_the_trainer_forms(cuda, form):
+    """The kernel's entry picks each trainer product's path from its shape
+    and layout, the same at P = 1, 2 and 54."""
+    from repro_torch.kernels.client_gemm import client_gemm_path
+
+    (M, K, N), a_t, b_t, ones_row, want = form
+    got = set()
+    for P in (1, 2, 54):
+        a = (torch.empty((P, K, M), device=cuda).transpose(1, 2) if a_t
+             else torch.empty((P, M, K), device=cuda))
+        b = (torch.empty((P, N, K), device=cuda).transpose(1, 2) if b_t
+             else torch.empty((P, K, N), device=cuda))
+        got.add(client_gemm_path(a, b, ones_row))
+    assert got == {want}
+
+
+def test_client_gemm_path_reads_16_bytes_only_where_aligned(cuda):
+    from repro_torch.kernels.client_gemm import client_gemm_path
+
+    a = torch.empty((2, 64, 288), device=cuda)
+    b = torch.empty((2, 288, 64), device=cuda)
+    assert "A along k 16 B, B along n 16 B" in client_gemm_path(a, b)
+    off = torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape)
+    assert "A along k, B along n 16 B" in client_gemm_path(off, b)
+    odd = torch.empty((2, 64, 287), device=cuda)[:, :, :286]     # rows of 287
+    assert "A along k," in client_gemm_path(odd, torch.empty((2, 286, 64), device=cuda))
