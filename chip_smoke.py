@@ -9,30 +9,41 @@ Phases, one JSON line each:
            the port sets (both must be off)
   build    nvcc of every CUDA source under src/repro_torch/kernels/csrc,
            in parallel, with the build seconds and ptxas's registers, stack
-           and spills for every kernel; the sort networks and every
-           instance of the fused aggregation and of client_gemm must use
-           no stack and spill nothing
+           and spills for every kernel; every instance of the f32 sorts
+           (networks and run merges), of the fused aggregation and of
+           client_gemm must use no stack and spill nothing
   kernel   each kernel against its plain PyTorch version (run on CPU copies
            of the same inputs) at the shapes its path gives it and at edge
            shapes (ragged D, all-zero tiles, exact half steps, K from 1 to
-           90 on every side of the sort-network widths 8, 16 and 32, ties
-           of +0.0 and -0.0, quantize_out on and off for every method, and
-           every 0/1 column for K <= 20 through both sorts), with device
+           129 on every side of the sort-network widths 8, 16 and 32, of
+           the run merge's runs and of its largest K, ties of +0.0 and
+           -0.0, quantize_out on and off for every method, and every 0/1
+           column for K <= 20 through both sorts), with device
            times (CUDA-graph replay between CUDA events) of the kernel,
            L2-warm (``ms``) and L2-cold (``cold_ms``), of the plain version
            and, where one PyTorch call computes the same function, of that
            call; ``eager_ms`` is the kernel's time per call from Python,
            launch path included.  fused_agg has a row for each form the
            round can ask of it (``form``: fedavg, cwmed, trimmed_mean trim
-           1, fedavg quantize_out).  ``variant`` names the design the
-           wrapper launched, and ``alternatives`` times the other design
-           in the same run through its uncounted launcher (cwmed and
-           trimmed_mean in shared memory)
+           1, fedavg quantize_out, and cwmed quantize_out at K = 51, the
+           form of tiered_int8_cwmed's slices); cwmed and trimmed_mean also
+           at K = 90.  ``variant`` names the design the wrapper launched,
+           as its C entry reports it (cwmed.sort_design,
+           fused_agg.fused_design); a sort row's ``launches`` counts the
+           paths' launches of that design (the wrappers count by design),
+           and ``alternatives`` checks and times the other design in the
+           same run through the uncounted launchers (the insertion sort in
+           shared memory).  The sorts' bounds count only
+           the work every design does (sort_ops), not a sort's compares
   kernel_floor  dequantize, quantize and fused_agg on one tile: launch,
            ramp-up and one round trip to memory
-  kernel_k90  the shared-memory sorts at K = 90 (f32 and fused int8): the
-           f32 one no path runs, the fused one runs on tiered_int8_cwmed's
-           slices at their own K (``kernel_path``)
+  kernel_sort_k  the K > 32 sorts over SORT_SWEEP_KS (K = 33 to 129; it
+           took over the former kernel_k90 lines): fused cwmed and trimmed
+           mean (trim 1 and (K - 1) // 2) with and without quantize_out,
+           and f32 cwmed and trimmed mean, each equal to its plain version
+           at tolerance 0, L2-warm and L2-cold, beside its bound, with the
+           insertion sort timed beside it where it is not the path, torch.quantile
+           (library) and torch.sort alone beside the f32 median
            The local trainer's per-client products (client_gemm) have a
            row for each of the eleven calls of one SGD step at the
            full-width shapes (GEMM_FORMS: four forwards, three input
@@ -76,7 +87,7 @@ Phases, one JSON line each:
                     2 rounds each of build_runtime(..., tiers=S): an int8
                     chain with the committee_int8 inner validator (S = 2);
                     an int8 cwmed chain at active_proportion 0.2 (S = 2,
-                    slices above 32 rows: the fused kernel's column sort
+                    slices above 32 rows: the fused kernel's run merge
                     with quantize_out); an f32 trimmed-mean chain (S = 3).
                     verify() and the tiered height, the committee blocks,
                     every slice's sub-aggregate (int8: its blob) bit for
@@ -86,7 +97,8 @@ Phases, one JSON line each:
                     the flat stack, exact launch counts (S quantize_out
                     launches a round and one final aggregation on int8);
                     then the tier-1 kernel timed on the largest slice's
-                    rows (``kernel_path``)
+                    rows (``kernel_path``; a fused sort over more than 32
+                    rows with the insertion sort it replaced beside it)
            async_int8, async_tiered_int8
                     2 rounds each of build_runtime(..., schedule="async") on
                     the int8 and the tiered_int8 configs, in turns with a
@@ -217,6 +229,7 @@ exits non-zero and prints no result; without CUDA it exits 2.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -239,9 +252,19 @@ MAIN_K = 8
 COLD_BYTES = 100e6
 MAIN_P = 54          # trainers scored per cohort at full width
 NETWORK_WIDTHS = (8, 16, 32)   # the register sorts' slot counts
-# K of the fused aggregation's edge cases: every side of the network widths
-# and of its shared-memory column sort (K > 32)
-FUSED_EDGE_KS = (1, 3, 8, 16, 17, 32, 33, 64, 65, 90)
+# the paths' launches by (sort wrapper, design), added up over every path
+PATH_DESIGNS = collections.Counter()
+# sort designs that a kernels row times but no path launches: the f32 paths
+# aggregate a round's K = 8 rows, and the baselines' 90-client cwmed takes
+# the plain reduction, so no path sorts more than 32 f32 rows
+UNRUN_DESIGNS = {("cwmed", "run merge R=3"), ("trimmed_mean", "run merge R=3")}
+# K of the fused aggregation's edge cases: every side of the network widths,
+# of the run merge's runs and of its largest K
+FUSED_EDGE_KS = (1, 3, 8, 16, 17, 32, 33, 64, 65, 90, 128, 129)
+# K of the K > 32 sorts' sweep (phase kernel_sort_k): each side of a run
+# boundary and of the merge's largest K, the tiered path's slices (44-51)
+# and a full Basic-FL cohort (90)
+SORT_SWEEP_KS = (33, 44, 51, 64, 65, 90, 128, 129)
 # kernel -> (source under src/repro_torch/kernels/csrc, the reference's
 # pallas_call it replaces)
 KERNELS = {
@@ -364,6 +387,17 @@ def eager_ms(fn, reps: int = 200) -> float:
     return _events_ms(fn, reps)
 
 
+def sort_ops(K: int, method: str, trim: int = 0, fused: bool = False,
+             quantize_out: bool = False) -> int:
+    """Operations a lane of a median or trimmed mean over K rows that every
+    design does, whatever sorts the column: K dequantizing multiplies (the
+    fused kernel), K - 1 compares, the reader's adds and its one multiply
+    (an even median's pair, or the kept values' sum and f32(1 / kept)),
+    and 6 to requantize (quantize_out)."""
+    read = (2 if K % 2 == 0 else 0) if method == "cwmed" else K - 2 * trim
+    return K * fused + K - 1 + read + 6 * quantize_out
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -471,15 +505,20 @@ def phase_build():
     emit(phase="build", seconds=seconds,
          libraries={k: os.path.relpath(v, ROOT) for k, v in paths.items()},
          flags=list(_build.NVCC_FLAGS), ptxas=ptxas)
-    for w in NETWORK_WIDTHS:
-        net = ptxas["f32_agg"].get(f"sort_net_kernel<{w}>")
-        check(net is not None, f"ptxas reported no sort_net_kernel<{w}>")
-        check(net["stack"] == 0 and net["spill_stores"] == 0
-              and net["spill_loads"] == 0,
-              f"sort_net_kernel<{w}> keeps its column off registers: {net}")
+    f32 = ptxas["f32_agg"]
+    want = ({f"sort_net_kernel<{w}>" for w in NETWORK_WIDTHS}
+            | {f"sort_merge_kernel<{r}>" for r in (2, 3, 4)})
+    check(want <= set(f32), f"ptxas reported {sorted(f32)}, want {sorted(want)}")
+    for name in want:
+        use = f32[name]
+        check(use["stack"] == 0 and use["spill_stores"] == 0
+              and use["spill_loads"] == 0,
+              f"{name} keeps its column off registers: {use}")
     fused = ptxas["fused_agg"]
-    want = {f"fused_agg_kernel<{w},{qout}>" for w in (0,) + NETWORK_WIDTHS
-            for qout in (0, 1)} | {"fused_column_kernel"}
+    want = ({f"fused_agg_kernel<{w},{qout}>" for w in (0,) + NETWORK_WIDTHS
+             for qout in (0, 1)}
+            | {f"fused_lane_kernel<{r}>" for r in (2, 3, 4)}
+            | {"fused_column_kernel", "requantize_kernel"})
     check(want <= set(fused), f"ptxas reported {sorted(fused)}, want {sorted(want)}")
     for name, use in fused.items():
         check(use["stack"] == 0 and use["spill_stores"] == 0
@@ -506,11 +545,13 @@ def phase_kernels():
     )
     from repro_torch.kernels.cwmed import (
         _CWMED, _TRIMMED_MEAN, _launch_sort, cwmed_kernel, cwmed_ref,
-        median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
-        trimmed_mean_ref,
+        median_of_sorted, sort_design, trimmed_mean_kernel,
+        trimmed_mean_of_sorted, trimmed_mean_ref,
     )
     from repro_torch.kernels.fedavg_agg import fedavg_agg_kernel, fedavg_agg_ref
-    from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
+    from repro_torch.kernels.fused_agg import (
+        METHODS, _launch_fused, fused_agg_kernel, fused_agg_ref, fused_design,
+    )
     from repro_torch.kernels.fused_score import (
         fused_candidates_kernel, fused_candidates_ref,
     )
@@ -540,8 +581,10 @@ def phase_kernels():
 
     def row(name, fn, plain, cpu_args, gpu_args, tol, nbytes, flops,
             library=None, edge=None, variant=None, alternatives=None,
-            form=None, extra=None, library_call=None):
-        """``alternatives``: {variant: fn} other designs of the kernel,
+            form=None, extra=None, library_call=None, design=None):
+        """``design``: a sort wrapper's design the row times (its launches
+        are the paths' launches of it); ``alternatives``: {variant: fn}
+        other designs of the kernel,
         checked and timed in the same run beside it; ``form``: which of a
         kernel's forms the row times; ``extra``: () -> dict of more
         fields, run after the timings; ``library_call``: what ``library``
@@ -556,7 +599,8 @@ def phase_kernels():
         entry = {
             "name": name, "form": form, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
-            "replaces": replaces, "variant": variant, "launches": None,
+            "replaces": replaces, "variant": variant, "design": design,
+            "launches": None,
             "max_abs_err": err, "tolerance": tol,
             "ms": time_ms(lambda: fn(*gpu_args)),
             "cold_ms": cold_ms(fn, gpu_args),
@@ -581,11 +625,6 @@ def phase_kernels():
             entry.update(extra())
         emit(phase="kernel", **entry)
         rows.append(entry)
-
-    def sort_variant(K_):
-        """The design the sort kernels' C entries pick for K_ rows."""
-        w_ = next((v for v in NETWORK_WIDTHS if K_ <= v), None)
-        return f"register network W={w_}" if w_ else "shared memory"
 
     def edge_quantize():
         """Row 0 of exact half steps (each lane's product with the
@@ -699,7 +738,8 @@ def phase_kernels():
         """fedavg (same weights) and trimmed mean bit for bit, the median
         by value; with +-0.0 ties fedavg and the median by value."""
         n = 0
-        for K_ in (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 90):
+        for K_ in (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 64, 65, 90,
+                   128, 129):
             for D_ in (2048, 5000, 6145):
                 for zeros in (False, True):
                     xs = (signed_zero_stack if zeros else edge_stack)(K_, D_, K_ * 3 + D_)
@@ -738,15 +778,16 @@ def phase_kernels():
         edge=edge_dequantize, variant="4 lanes a thread")
     # the fused aggregation's four forms at the main path's (8, Dpad);
     # operations a lane: K dequantizes (2 each), then fedavg's K
-    # multiply-adds (2 each), or K(K-1)/2 sort compares and the reader
+    # multiply-adds (2 each), or the sorts' sort_ops
     q_in = K * Dpad * i8 + K * nblk * f32
     fused_forms = (
         ("fedavg", dict(), q_in + K * f32 + Dpad * f32, 4 * K * Dpad,
          edge_fused),
         ("cwmed", dict(method="cwmed"), q_in + Dpad * f32,
-         (2 * K + K * (K - 1) // 2 + 2) * Dpad, edge_fused_zero_one),
+         sort_ops(K, "cwmed", fused=True) * Dpad, edge_fused_zero_one),
         ("trimmed_mean trim 1", dict(method="trimmed_mean", trim=1),
-         q_in + Dpad * f32, (2 * K + K * (K - 1) // 2 + K - 1) * Dpad, None),
+         q_in + Dpad * f32, sort_ops(K, "trimmed_mean", 1, fused=True) * Dpad,
+         None),
         ("fedavg quantize_out", dict(quantize_out=True),
          q_in + K * f32 + Dpad * i8 + nblk * f32, (4 * K + 6) * Dpad, None),
     )
@@ -757,10 +798,11 @@ def phase_kernels():
         layout = ("4 lanes a thread, one block of 512 a tile" if kw.get("quantize_out")
                   else "4 lanes a thread, 4 blocks of 128 a tile")
         # fedavg is one FMA chain on both sides: exact given the same weights
+        design = fused_design(K, kw.get("method", "fedavg"))
         row("fused_agg", functools.partial(fused_agg_kernel, **kw), plain,
             (q8.cpu(), s8.cpu(), w.cpu()), (q8, s8, w), 0.0, nbytes, ops_,
-            edge=edge, form=form,
-            variant=(f"{sort_variant(K)}, {layout}" if "method" in kw else layout))
+            edge=edge, form=form, design=design,
+            variant=(f"{design}, {layout}" if "method" in kw else layout))
 
     # one tile: launch, ramp-up and one round trip to memory, which no
     # layout of the bytes removes
@@ -793,23 +835,22 @@ def phase_kernels():
 
     # the f32 kernel path's stack: K unpadded rows (the kernels mask the edge)
     xs = stack[:, :D].contiguous()
-    sort_ops = K * (K - 1) // 2 * D
     half = torch.tensor(0.5, device="cuda")    # a device q: no host check
     row("fedavg_agg", fedavg_agg_kernel, fedavg_agg_ref, (xs.cpu(), w.cpu()),
         (xs, w), 0.0, K * D * f32 + K * f32 + D * f32, 2 * K * D,
         library=lambda: torch.matmul(w, xs), edge=edge_f32)
     row("cwmed", cwmed_kernel, cwmed_ref, (xs.cpu(),), (xs,), 0.0,
-        K * D * f32 + D * f32, sort_ops + D,
+        K * D * f32 + D * f32, sort_ops(K, "cwmed") * D,
         library=lambda: torch.quantile(xs, half, dim=0),
-        variant=sort_variant(K),
-        alternatives={"shared memory": lambda a: _launch_sort(
-            a, _CWMED, 0, force_shared=True)})
+        variant=sort_design(K), design=sort_design(K),
+        alternatives={"insertion sort": lambda a: _launch_sort(
+            a, _CWMED, 0, insertion=True)})
     row("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
         lambda a: trimmed_mean_ref(a, 1), (xs.cpu(),), (xs,), 0.0,
-        K * D * f32 + D * f32, sort_ops + (K - 1) * D,
-        variant=sort_variant(K),
-        alternatives={"shared memory": lambda a: _launch_sort(
-            a, _TRIMMED_MEAN, 1, force_shared=True)})
+        K * D * f32 + D * f32, sort_ops(K, "trimmed_mean", 1) * D,
+        variant=sort_design(K), design=sort_design(K),
+        alternatives={"insertion sort": lambda a: _launch_sort(
+            a, _TRIMMED_MEAN, 1, insertion=True)})
 
     # the local trainer's per-client products at the main path's shapes
     # (P = 54 clients, batch 32, width 32): GEMM_FORMS, the eleven calls of
@@ -859,40 +900,153 @@ def phase_kernels():
                           "baddbmm" if with_bias else "bmm"))
         del a_, b_, bias_, cpu_
 
-    # the shared-memory sort at a full Basic-FL cohort's K, which no path
-    # runs (the baselines aggregate with the plain reductions)
-    K90 = 90
-    x90 = torch.randn((K90, D), generator=g, device="cuda") * 1e-3
-    srt = torch.sort(x90.cpu(), dim=0).values
-    for method, fn, want, extra_ops in (
-            ("cwmed", cwmed_kernel, median_of_sorted(srt), D),
+    # the K > 32 sorts in the kernels line: the fused cwmed with quantize_out
+    # at K = 51, the form tiered_int8_cwmed's slices of 44-51 rows ask for,
+    # and the f32 sorts at a full Basic-FL cohort's K = 90 (no path runs
+    # them: the baselines aggregate with the plain reductions); the old
+    # insertion sort timed beside them
+    x51 = torch.zeros((51, Dpad), device="cuda")
+    x51[:, :D] = torch.randn((51, D), generator=g, device="cuda") * 1e-3
+    q51, s51 = quantize_stack_ref(x51.cpu())
+    q51, s51, w51 = q51.cuda(), s51.cuda(), torch.full((51,), 1.0 / 51, device="cuda")
+    del x51
+    kw51 = dict(method="cwmed", trim=0, quantize_out=True)
+    row("fused_agg", functools.partial(fused_agg_kernel, **kw51),
+        functools.partial(fused_agg_ref, **kw51),
+        (q51.cpu(), s51.cpu(), w51.cpu()), (q51, s51, w51), 0.0,
+        51 * Dpad * i8 + 51 * nblk * f32 + Dpad * i8 + nblk * f32,
+        sort_ops(51, "cwmed", fused=True, quantize_out=True) * Dpad,
+        form="cwmed quantize_out, K = 51", variant=fused_design(51, "cwmed"),
+        design=fused_design(51, "cwmed"),
+        alternatives={"insertion sort": functools.partial(
+            _launch_fused, insertion=True, **kw51)})
+    del q51, s51
+    x90 = torch.randn((90, D), generator=g, device="cuda") * 1e-3
+    for name, fn, plain, method, trim in (
+            ("cwmed", cwmed_kernel, cwmed_ref, _CWMED, 0),
             ("trimmed_mean", lambda a: trimmed_mean_kernel(a, trim=1),
-             trimmed_mean_of_sorted(srt, 1), (K90 - 1) * D)):
-        err = max_err(fn(x90), want)
-        check(err == 0.0, f"{method} K={K90}: max_abs_err {err}")
-        b_ms, b_by = bound_ms(K90 * D * f32 + D * f32,
-                              K90 * (K90 - 1) // 2 * D + extra_ops)
-        emit(phase="kernel_k90", name=method, variant=sort_variant(K90),
-             shape=[K90, D], max_abs_err=err, ms=time_ms(lambda: fn(x90)),
-             cold_ms=cold_ms(fn, (x90,)), bound_ms=b_ms, bound_by=b_by)
-    # the fused kernel's column sort at the same K, from int8
-    x90p = torch.zeros((K90, Dpad), device="cuda")
-    x90p[:, :D] = x90
-    q90, s90 = quantize_stack_ref(x90p.cpu())
-    w90 = torch.full((K90,), 1.0 / K90)
-    want = fused_agg_ref(q90, s90, w90, method="cwmed")
-    q90, s90, w90 = q90.cuda(), s90.cuda(), w90.cuda()
-    fn = functools.partial(fused_agg_kernel, method="cwmed")
-    err = max_err(fn(q90, s90, w90), want)
-    check(err == 0.0, f"fused_agg cwmed K={K90}: max_abs_err {err}")
-    b_ms, b_by = bound_ms(K90 * Dpad * i8 + K90 * nblk * f32 + Dpad * f32,
-                          (2 * K90 + K90 * (K90 - 1) // 2 + 2) * Dpad)
-    emit(phase="kernel_k90", name="fused_agg", form="cwmed",
-         variant="shared-memory column sort", shape=[K90, Dpad],
-         max_abs_err=err, ms=time_ms(lambda: fn(q90, s90, w90), iters=5, reps=4),
-         cold_ms=cold_ms(fn, (q90, s90, w90), reps=1), bound_ms=b_ms,
-         bound_by=b_by)
+             lambda a: trimmed_mean_ref(a, 1), _TRIMMED_MEAN, 1)):
+        row(name, fn, plain, (x90.cpu(),), (x90,), 0.0,
+            90 * D * f32 + D * f32,
+            sort_ops(90, "cwmed" if trim == 0 else "trimmed_mean", trim) * D,
+            library=(lambda: torch.quantile(x90, half, dim=0))
+            if name == "cwmed" else None,
+            form=f"K = 90{'' if trim == 0 else ', trim 1'}",
+            variant=sort_design(90), design=sort_design(90),
+            alternatives={"insertion sort": functools.partial(
+                _launch_sort, method=method, trim=trim, insertion=True)})
+    del x90
+    phase_sort_sweep(g, D, Dpad)
     return rows
+
+
+def phase_sort_sweep(g, D: int, Dpad: int) -> None:
+    """The K > 32 sorts over SORT_SWEEP_KS (phase ``kernel_sort_k``; it
+    took over the former K = 90 lines): the fused int8 cwmed and trimmed
+    mean (trim 1 and (K - 1) // 2), each with and without quantize_out, and
+    the f32 ones, at the main path's width.  Every row equal to its plain
+    version (tolerance 0: the median by value, everything else bit for
+    bit), the plain version's sort run on the card and its reduction and
+    requantization on CPU copies; L2-warm and L2-cold times beside the
+    bound of sort_ops; where the insertion sort is not the path (the run
+    merge replaced it there), the insertion sort checked and timed the
+    same way; for the f32
+    median torch.quantile as its library call and torch.sort alone as
+    context."""
+    import torch
+
+    from repro_torch.kernels.cwmed import (
+        _CWMED, _TRIMMED_MEAN, _launch_sort, median_of_sorted, sort_design,
+        trimmed_mean_of_sorted,
+    )
+    from repro_torch.kernels.fused_agg import _launch_fused, fused_design
+    from repro_torch.kernels.quantize import (
+        dequantize_stack_ref, quantize_ref, quantize_stack_ref,
+    )
+
+    f32, i8 = 4, 1
+    nblk = Dpad // 2048
+    half = torch.tensor(0.5, device="cuda")
+
+    def exact(got, want, by_value):
+        if isinstance(got, tuple):
+            return all(exact(a, b, by_value) for a, b in zip(got, want))
+        got = got.cpu()
+        if by_value or got.dtype != torch.float32:
+            return torch.equal(got, want)
+        return same_bits(got, want)
+
+    def sweep_row(name, form, K, fn, args, want, by_value, nbytes, ops_,
+                  variant, **extra):
+        """fn(*args, insertion=False) is the design K picks (``variant``),
+        fn(*args, insertion=True) the insertion sort."""
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(exact(got, want, by_value), f"{name} {form} K={K}: differs from "
+                                          f"the plain version by {err}")
+        b_ms, b_by = bound_ms(nbytes, ops_)
+        alts = []
+        if not variant.startswith("insertion"):
+            alt = functools.partial(fn, insertion=True)
+            check(exact(alt(*args), want, by_value),
+                  f"{name} {form} K={K} (insertion sort) differs")
+            alts.append({"variant": "insertion sort",
+                         "ms": time_ms(lambda: alt(*args), iters=5, reps=2),
+                         "cold_ms": cold_ms(alt, args, reps=1)})
+        ms = time_ms(lambda: fn(*args), iters=10, reps=5)
+        for a in alts:
+            a["speedup"] = a["ms"] / ms     # this design's time over the path's
+        emit(phase="kernel_sort_k", name=name, form=form, K=K,
+             shape=[list(a.shape) for a in args if hasattr(a, "shape")],
+             variant=variant, max_abs_err=err, tolerance=0.0, ms=ms,
+             cold_ms=cold_ms(fn, args, reps=2), bound_ms=b_ms, bound_by=b_by,
+             alternatives=alts, **extra)
+
+    for K in SORT_SWEEP_KS:
+        trims = (("cwmed", 0), ("trimmed_mean", 1),
+                 ("trimmed_mean", (K - 1) // 2))
+        # fused: update-sized normals in the chain's int8 form
+        x = torch.randn((K, Dpad), generator=g, device="cuda") * 1e-3
+        q, s = (t.cuda() for t in quantize_stack_ref(x.cpu()))
+        w = torch.full((K,), 1.0 / K, device="cuda")
+        srt = torch.sort(dequantize_stack_ref(q, s), dim=0).values.cpu()
+        del x
+        for method, trim in trims:
+            agg = (median_of_sorted(srt) if method == "cwmed"
+                   else trimmed_mean_of_sorted(srt, trim))
+            for qout in (False, True):
+                fn = functools.partial(_launch_fused, method=method, trim=trim,
+                                       quantize_out=qout)
+                sweep_row("fused_agg", f"{method} trim {trim}"
+                          + (" quantize_out" if qout else ""), K, fn,
+                          (q, s, w), quantize_ref(agg) if qout else agg, False,
+                          K * Dpad * i8 + K * nblk * f32
+                          + (Dpad * i8 + nblk * f32 if qout else Dpad * f32),
+                          sort_ops(K, method, trim, fused=True,
+                                   quantize_out=qout) * Dpad,
+                          fused_design(K, method))
+        del q, s, srt
+        # f32: the f32 path's unpadded (K, D) stack
+        x = torch.randn((K, D), generator=g, device="cuda") * 1e-3
+        srt = torch.sort(x, dim=0).values.cpu()
+        for method, trim in trims:
+            code = _CWMED if method == "cwmed" else _TRIMMED_MEAN
+            extra = {}
+            if method == "cwmed":
+                extra = {"library_ms": time_ms(
+                    lambda: torch.quantile(x, half, dim=0), iters=5, reps=4),
+                    "library_call": "torch.quantile",
+                    "sort_alone_ms": time_ms(
+                        lambda: torch.sort(x, dim=0), iters=5, reps=4)}
+            sweep_row(method, f"trim {trim}", K,
+                      functools.partial(_launch_sort, method=code, trim=trim),
+                      (x,),
+                      median_of_sorted(srt) if method == "cwmed"
+                      else trimmed_mean_of_sorted(srt, trim),
+                      method == "cwmed", K * D * f32 + D * f32,
+                      sort_ops(K, method, trim) * D, sort_design(K), **extra)
+        del x, srt
 
 
 def run_rounds(path: str, rt, rounds: int) -> None:
@@ -949,16 +1103,27 @@ def verify(path: str, rt, rounds: int) -> None:
           f"{path}: chain height")
 
 
+def add_designs(designs: dict) -> None:
+    """Adds a path's launches by sort design (kernels.design_counts) to
+    PATH_DESIGNS."""
+    for name, by in designs.items():
+        for design, n in by.items():
+            PATH_DESIGNS[name, design] += n
+
+
 def counted(path: str, drive, need: dict):
     """Drive one path with every launch count set to 0 just before it,
     read the counts just after, and require ``need``'s minimums.  Returns
     the counts and the runtime ``drive`` returned."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        design_counts, launch_counts, reset_launch_counts,
+    )
 
     reset_launch_counts()
     rt = drive()
-    counts = launch_counts()
-    emit(phase="launches", path=path, launches=counts)
+    counts, designs = launch_counts(), design_counts()
+    add_designs(designs)
+    emit(phase="launches", path=path, launches=counts, designs=designs)
     for name, least in need.items():
         check(counts[name] >= least, f"{path}: {name} launched "
                                      f"{counts[name]} times, want >= {least}")
@@ -1427,7 +1592,7 @@ def path_tiered(ds, path: str):
                   f"below flat {log['flat_stack_bytes']}")
         if method == "cwmed" and quantized:
             check(max(ks) > 32, f"{path}: no slice above 32 rows ({ks}); the "
-                                f"column sort did not run")
+                                f"run merge did not run")
         return rt
 
     n = rounds * S
@@ -1452,10 +1617,14 @@ def time_slice_kernel(path, quantized, method, trim, slices, tier1):
     """Time the tier-1 kernel of a tiered path on the rows of its largest
     slice (after the counted run: these launches count nowhere), beside
     its bound; ``launches`` is how many slices of the path ran it in the
-    same form (for the fused sorts: the K > 32 column form or a network)."""
+    same form (for the sorts: the same design, ``variant``); for a fused
+    sort over more than 32 rows the insertion sort it replaced is timed
+    beside it (``alternatives``)."""
     from repro_torch.core.aggregation import flatten_updates, normalize_weights
-    from repro_torch.kernels.cwmed import trimmed_mean_kernel
-    from repro_torch.kernels.fused_agg import fused_agg_kernel
+    from repro_torch.kernels.cwmed import sort_design, trimmed_mean_kernel
+    from repro_torch.kernels.fused_agg import (
+        _launch_fused, fused_agg_kernel, fused_design,
+    )
 
     contributors = [c for tr in tier1 for c in tr["contributors"]]
     ks = [len(c) for c in contributors]
@@ -1465,33 +1634,42 @@ def time_slice_kernel(path, quantized, method, trim, slices, tier1):
     trim_k = min(trim, (K - 1) // 2)
     f32, i8 = 4, 1
     launches = len(ks)
+    variant, alternatives = None, {}
     if quantized:
         q, s = (t.cuda() for t in plain_quantized_rows(stack))
         w = normalize_weights(K, None, "cuda")
         Dpad, nblk = q.shape[1], s.shape[1]
-        column = method != "fedavg" and K > 32
-        form = f"{method} quantize_out" + (" column sort" if column else "")
+        form = f"{method} quantize_out"
         if method != "fedavg":      # slices that ran the same sort design
-            launches = sum((k > 32) == column for k in ks)
+            variant = fused_design(K, method)
+            launches = sum(fused_design(k, method) == variant for k in ks)
+            if variant.startswith("run merge"):   # the sort it replaced
+                alternatives["insertion sort"] = functools.partial(
+                    _launch_fused, q, s, w, method, trim_k, True,
+                    insertion=True)
         fn = functools.partial(fused_agg_kernel, q, s, w, method=method,
                                trim=trim_k, quantize_out=True)
-        sort_ops = {"fedavg": 4 * K, "cwmed": 2 * K + K * (K - 1) // 2 + 2,
-                    "trimmed_mean": 2 * K + K * (K - 1) // 2 + K - 1}[method]
+        ops_ = (4 * K + 6 if method == "fedavg" else
+                sort_ops(K, method, trim_k, fused=True, quantize_out=True))
         b_ms, b_by = bound_ms(K * Dpad * i8 + K * nblk * f32 + K * f32
-                              + Dpad * i8 + nblk * f32, (sort_ops + 6) * Dpad)
+                              + Dpad * i8 + nblk * f32, ops_ * Dpad)
         name, shape = "fused_agg", [K, Dpad]
     else:
         x = stack.contiguous()
         D = x.shape[1]
         fn = functools.partial(trimmed_mean_kernel, x, trim=trim_k)
-        form = f"trimmed_mean trim {trim_k}"
+        form, variant = f"trimmed_mean trim {trim_k}", sort_design(K)
+        launches = sum(sort_design(k) == variant for k in ks)
         b_ms, b_by = bound_ms(K * D * f32 + D * f32,
-                              K * (K - 1) // 2 * D + (K - 1) * D)
+                              sort_ops(K, "trimmed_mean", trim_k) * D)
         name, shape = "trimmed_mean", [K, D]
     ms = time_ms(fn, iters=5, reps=4)
-    emit(phase="kernel_path", path=path, name=name, form=form, shape=shape,
-         slice_ks=ks, launches=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
-         launches_x_gap_ms=launches * (ms - b_ms))
+    emit(phase="kernel_path", path=path, name=name, form=form,
+         variant=variant, shape=shape, slice_ks=ks, launches=launches, ms=ms,
+         bound_ms=b_ms, bound_by=b_by,
+         launches_x_gap_ms=launches * (ms - b_ms),
+         alternatives={v: time_ms(f, iters=5, reps=4)
+                       for v, f in alternatives.items()})
 
 
 # the async paths: path -> (config, tiers, inner / flat validator, launches
@@ -2108,7 +2286,9 @@ def sharded_rank(init) -> dict:
     import torch
 
     from repro_torch.data.synthetic import make_femnist_like
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        design_counts, launch_counts, reset_launch_counts,
+    )
     from repro_torch.kernels.ops import padded_dim_sharded
     from repro_torch.launch.mesh import make_round_mesh
     from repro_torch.tree import ravel_pytree
@@ -2138,7 +2318,7 @@ def sharded_rank(init) -> dict:
                 spies.settle()
         finally:
             spies.remove()
-        counts = launch_counts()
+        counts, designs = launch_counts(), design_counts()
         exact, width = int8_replay(rt, ROUNDS_SHARDED - 1)
         d = rt.chain.codec.dim
         check(rt.chain.verify(), f"{path}: chain.verify() on rank {mesh.rank}")
@@ -2164,7 +2344,8 @@ def sharded_rank(init) -> dict:
         if spies.last.get("stack") is not None:
             last = spies.last
         out["paths"][path] = {
-            "launches": counts, "rounds": rounds, "committees": committees,
+            "launches": counts, "designs": designs, "rounds": rounds,
+            "committees": committees,
             "logs": [r["log"] for r in rounds], "digests": chain_digests(rt.chain),
             "params": ravel_pytree(rt.global_params())[0].cpu(),
             "spies": spies.calls, "replay_exact": exact, "width": width,
@@ -2218,6 +2399,8 @@ def path_sharded_world2(init, world1) -> dict:
                      log=rd["log"])
         counts = {k: sum(x["launches"][k] for x in res)
                   for k in res[0]["launches"]}
+        for x in res:
+            add_designs(x["designs"])
         emit(phase="launches", path=path, launches=counts,
              per_rank=[{k: v for k, v in x["launches"].items() if v}
                        for x in res], spies=[x["spies"] for x in res],
@@ -3748,9 +3931,14 @@ def main(argv) -> int:
         later[name] = run()
         emit(phase="path_seconds", path=name, seconds=time.perf_counter() - t0)
     for r in rows:
-        r["launches"] = (sum(c[r["name"]] for c, _ in paths.values())
-                         + sum(c[r["name"]] for c in later.values()))
-        check(r["launches"] > 0, f"{r['name']} was launched on no path")
+        total = (sum(c[r["name"]] for c, _ in paths.values())
+                 + sum(c[r["name"]] for c in later.values()))
+        check(total > 0, f"{r['name']} was launched on no path")
+        r["launches"] = total
+        if r["design"] is not None:     # a sort row: its own design's count
+            r["launches"] = PATH_DESIGNS[r["name"], r["design"]]
+            check(r["launches"] > 0 or (r["name"], r["design"]) in UNRUN_DESIGNS,
+                  f"{r['name']} {r['design']} was launched on no path")
     if "--profile" in argv:
         for name, (_, rt) in paths.items():
             for each in rt if isinstance(rt, tuple) else (rt,):

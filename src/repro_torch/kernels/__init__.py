@@ -54,9 +54,18 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def design_counts() -> dict:
+    """The sort wrappers' launches by the design that ran: {name: {design:
+    launches}}."""
+    return {name: dict(fn.designs) for name, fn in KERNEL_WRAPPERS.items()
+            if hasattr(fn, "designs")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "designs"):
+            fn.designs = {}
 
 
 __all__ = [
@@ -73,6 +82,7 @@ __all__ = [
     "dequantize",
     "dequantize_kernel",
     "dequantize_pytree",
+    "design_counts",
     "fedavg_agg",
     "fedavg_agg_kernel",
     "fused_agg_kernel",

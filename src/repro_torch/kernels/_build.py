@@ -45,14 +45,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "repro_dequantize": [_P, _P, _P, _L, _P],
     },
     "fused_agg": {
-        "repro_fused_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "repro_fused_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                            _P],
     },
     "fused_score": {
         "repro_fused_candidates": [_P, _P, _P, _P, _I, _I, _P],
     },
     "f32_agg": {
         "repro_fedavg_agg": [_P, _P, _P, _I, _L, _P],
-        "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _I, _P],
+        "repro_sort_agg": [_P, _P, _I, _L, _I, _I, _I, _P, _P],
     },
     "client_gemm": {
         "repro_client_gemm": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _P,

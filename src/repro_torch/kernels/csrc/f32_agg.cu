@@ -28,22 +28,35 @@
 // thread in PERF.md).  This replaced a per-lane insertion sort in shared
 // memory, whose data-dependent shifts made each warp wait for its slowest
 // lane: 10.1-10.6 us at (8, 428350) against fedavg's 3.3 us for the same
-// loads.  That sort stays as the path for K > 32 (sort_agg_kernel), and
-// the C entry takes it at any K when asked to (to time it beside the
-// network): each thread keeps its lane's column in shared memory, laid out
-// column k at v[k * L + t] so the L threads of a block hit distinct banks,
-// and the block's lane count L shrinks (256, 128, ... 1) until its K-deep
-// columns fit the card's opt-in shared memory; only a K too deep for one
-// lane is refused.
+// loads.
+//
+// For 33 <= K <= 128 (sort_merge_kernel<R>) a thread still owns one lane:
+// it asks for its whole column at once (cp.async into its column of shared
+// memory, so K loads are in flight, not 32), sorts it as R = ceil(K / 32)
+// runs of 32 in registers (the last by the narrowest network that holds
+// it), stores each back as order keys, and merges the runs by their heads up to
+// the median's rank or through the trimmed mean's kept ranks
+// (sort_net.cuh merge_reduce): about K log K branch-free steps a lane.  A
+// lane's column is R * 33 keys, so a block of 128 lanes takes 34-68 KB and
+// an SM holds 12-24 warps.  The insertion sort stays for K > 128
+// (sort_agg_kernel): each thread keeps its lane's column in shared memory,
+// laid out column k at v[k * L + t] so the L threads of a block hit
+// distinct banks, and the block's lane count L shrinks (256, 128, ... 1)
+// until its K-deep columns fit the card's opt-in shared memory; only a K
+// too deep for one lane is refused.  The C entry's `insertion` flag takes
+// the insertion sort at any K instead, to time it beside the run merge
+// (chip_smoke.py).
 //
 // Numerics follow the reference as compiled: fedavg is the chain
 // acc = __fmaf_rn(x_k, w_k, acc) in k order from acc = 0; the median of an
 // even count is 0.5 * (a + b); the trimmed mean is a sequential sum of the
 // kept sorted values times f32(1 / kept) (sort_net.cuh).  Update stacks can
 // hold -0.0 (a sign-flip attack negates exact zeros); a sort may put either
-// zero of a tie first, so the median is held by value.  Inputs are NaN-free, as on
-// every path of the round: fminf drops a NaN, the insertion sort leaves it
-// where it was, and torch.sort puts it last.
+// zero of a tie first, so the median is held by value; the run merge
+// compares order keys that put -0.0 below +0.0, as fminf / fmaxf do, so its
+// runs merge into one sequence sorted as each run is.  Inputs are NaN-free,
+// as on every path of the round: fminf drops a NaN, the insertion sort
+// leaves it where it was, and torch.sort puts it last.
 #include "common.cuh"
 #include "sort_net.cuh"
 
@@ -75,6 +88,42 @@ sort_net_kernel(const float* __restrict__ x, float* __restrict__ out, int K,
   sort_slots(v);
   out[i] = method == CWMED ? median_of_slots(v, K)
                           : trimmed_mean_of_slots(v, K, trim, inv_keep);
+}
+
+// 32 (R - 1) < K <= 32 R: the lane's column as R sorted runs of 32 in shared
+// memory, merged (sort_net.cuh).
+template <int R>
+__global__ void __launch_bounds__(MERGE_THREADS)
+sort_merge_kernel(const float* __restrict__ x, float* __restrict__ out, int K,
+                  long long D, int method, int trim, float inv_keep) {
+  extern __shared__ int keys[];
+  const long long i =
+      static_cast<long long>(blockIdx.x) * MERGE_THREADS + threadIdx.x;
+  if (i >= D) return;  // no barrier below: each thread owns its column
+  int* col = keys + threadIdx.x;
+  // the column's K values into its run slots (run r's row k at slot
+  // r * RUN_SLOTS + k), all asked for at once, a commit group a run
+  const float* row = x + i;
+  for (int r = 0; r < R; ++r) {
+    for (int k = r * RUN; k < min(K, (r + 1) * RUN); ++k, row += D)
+      async_copy4(col + (k + r) * MERGE_THREADS, row);
+    async_copies_commit();
+  }
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) {
+    const int n = min(K - r * RUN, RUN);
+    int* run = col + r * RUN_SLOTS * MERGE_THREADS;
+    async_copies_wait(R - 1 - r);
+    float v[RUN];
+#pragma unroll
+    for (int k = 0; k < RUN; ++k)
+      v[k] = k < n ? __int_as_float(run[k * MERGE_THREADS])
+                   : __int_as_float(0x7f800000);
+    sort_run(v, n);
+    store_run<OrderedKey, MERGE_THREADS>(run, v);
+  }
+  out[i] = merge_reduce<R, OrderedKey, MERGE_THREADS>(col, K, method, trim,
+                                                      inv_keep);
 }
 
 // Any K: the lane's column in shared memory, insertion-sorted.
@@ -129,6 +178,24 @@ int launch_shared_sort(const float* x, float* out, int K, long long D,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int R>
+int launch_merge_sort(const float* x, float* out, int K, long long D,
+                      int method, int trim, float inv_keep,
+                      cudaStream_t stream) {
+  static std::atomic<int> granted[MAX_DEVICES];
+  int dev = 0, optin = 0;
+  int err = device_smem(&dev, &optin);
+  if (err != cudaSuccess) return err;
+  const int bytes = merge_smem_bytes(R, MERGE_THREADS);
+  err = allow_smem(sort_merge_kernel<R>, dev, bytes, granted);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (D + MERGE_THREADS - 1) / MERGE_THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  sort_merge_kernel<R><<<static_cast<unsigned>(blocks), MERGE_THREADS, bytes,
+                         stream>>>(x, out, K, D, method, trim, inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int W>
 int launch_network_sort(const float* x, float* out, int K, long long D,
                         int method, int trim, float inv_keep,
@@ -156,27 +223,45 @@ extern "C" int repro_fedavg_agg(const void* x, const void* w, void* out, int K,
 }
 
 // x: (K, D) f32 -> out: (D,) f32; method 1 = median, 2 = trimmed mean of
-// the sorted values [trim, K - trim).  K <= 32 sorts in registers, K > 32
-// (or any K with force_shared != 0) in shared memory, for any K whose
-// column fits one lane.
+// the sorted values [trim, K - trim).  The design (sort_net.cuh sort_path):
+// K <= 32 sorts in registers, 33 <= K <= 128 by the run merge, K > 128 by
+// the insertion sort in shared memory, for any K whose column fits one
+// lane; insertion != 0 takes the insertion sort at any K.  With `path`
+// non-null nothing is launched (x and out may be null) and the design is
+// written there: {design, size} (sort_net.cuh).
 extern "C" int repro_sort_agg(const void* x, void* out, int K, long long D,
-                              int method, int trim, int force_shared,
+                              int method, int trim, int insertion, int* path,
                               void* stream) {
   if (K <= 0 || D <= 0) return cudaErrorInvalidValue;
   if (method != repro::CWMED && method != repro::TRIMMED_MEAN)
     return cudaErrorInvalidValue;
   if (method == repro::TRIMMED_MEAN && (trim < 0 || 2 * trim >= K))
     return cudaErrorInvalidValue;
+  const repro::SortPath sp = repro::sort_path(K, insertion != 0);
+  if (path) {
+    path[0] = sp.design;
+    path[1] = sp.size;
+    return cudaSuccess;
+  }
   if (method != repro::TRIMMED_MEAN) trim = 0;
   // f32(1 / kept), rounded as the device's __fdiv_rn rounds it
   const float ik = 1.0f / static_cast<float>(K - 2 * trim);
   const float* xs = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (force_shared ? 0 : repro::network_width(K)) {
-    case 8: return repro::launch_network_sort<8>(xs, o, K, D, method, trim, ik, s);
-    case 16: return repro::launch_network_sort<16>(xs, o, K, D, method, trim, ik, s);
-    case 32: return repro::launch_network_sort<32>(xs, o, K, D, method, trim, ik, s);
-    default: return repro::launch_shared_sort(xs, o, K, D, method, trim, ik, s);
+  if (sp.design == repro::NETWORK) {
+    switch (sp.size) {
+      case 8: return repro::launch_network_sort<8>(xs, o, K, D, method, trim, ik, s);
+      case 16: return repro::launch_network_sort<16>(xs, o, K, D, method, trim, ik, s);
+      default: return repro::launch_network_sort<32>(xs, o, K, D, method, trim, ik, s);
+    }
   }
+  if (sp.design == repro::RUN_MERGE) {
+    switch (sp.size) {
+      case 2: return repro::launch_merge_sort<2>(xs, o, K, D, method, trim, ik, s);
+      case 3: return repro::launch_merge_sort<3>(xs, o, K, D, method, trim, ik, s);
+      default: return repro::launch_merge_sort<4>(xs, o, K, D, method, trim, ik, s);
+    }
+  }
+  return repro::launch_shared_sort(xs, o, K, D, method, trim, ik, s);
 }

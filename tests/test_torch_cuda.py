@@ -23,19 +23,30 @@ import torch
 from repro_torch.core.aggregation import normalize_weights
 from repro_torch.kernels import ops
 from repro_torch.kernels.cwmed import (
-    cwmed_kernel, median_of_sorted, trimmed_mean_kernel, trimmed_mean_of_sorted,
+    _CWMED, _TRIMMED_MEAN, _launch_sort, cwmed_kernel, median_of_sorted,
+    sort_design, trimmed_mean_kernel, trimmed_mean_of_sorted,
 )
-from repro_torch.kernels.fused_agg import METHODS, fused_agg_kernel, fused_agg_ref
+from repro_torch.kernels.fused_agg import (
+    METHODS, _fused_path, _launch_fused, fused_agg_kernel, fused_agg_ref,
+    fused_design,
+)
 from repro_torch.kernels.quantize import (
     dequantize_kernel, dequantize_ref, quantize_kernel, quantize_stack_kernel,
 )
 
 F32_KS = (1, 2, 3, 8, 17, 90)
-# the fused kernel's K: every side of its network widths, its shared-memory
-# column sort (K > 32) and chip_smoke.py's edge list
-FUSED_KS = (1, 3, 8, 16, 17, 32, 33, 64, 65, 90)
-# every side of each sort-network width (8, 16, 32) and the shared-memory sort
-SORT_KS = (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 90)
+# the fused kernel's K: every side of its network widths (8, 16, 32), of the
+# run merge's runs (32, 64, 96) and of its largest K (128, the insertion
+# sort above), the tiered path's slices (44-51) and chip_smoke.py's edge list
+FUSED_KS = (1, 3, 8, 16, 17, 31, 32, 33, 44, 51, 63, 64, 65, 90, 96, 127,
+            128, 129, 200)
+# the same sides for the f32 sorts
+SORT_KS = (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 44, 51, 63, 64, 65, 90,
+           96, 127, 128, 129, 200)
+# K of the sorts' designs on adversarial columns: every K > 32 side above
+DESIGN_KS = (33, 44, 51, 63, 64, 65, 90, 127, 128, 129)
+COLUMNS = ("ascending", "descending", "equal", "duplicate_runs",
+           "signed_zeros", "outlier")
 SORT_DS = (1, 255, 257, 6145, 428350)
 
 pytestmark = pytest.mark.cuda
@@ -210,6 +221,99 @@ def test_fused_agg_bit_exact_at_every_K(cuda, K, method, quantize_out):
             assert torch.equal(_bits(g), _bits(h))
 
 
+def _columns(K, D, kind, seed):
+    """(K, D) f32 whose every column is of one kind, and the lanes whose
+    zeros carry random signs (a trimmed mean there is held by value)."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.arange(K, dtype=torch.float32)[:, None]
+    scale = (torch.rand(D, generator=g) * 1.5 + 0.5) * 1e-3
+    rand = torch.zeros(D, dtype=torch.bool)
+    if kind in ("ascending", "descending"):
+        x = (rows - K / 2) * scale + torch.randn(D, generator=g) * 1e-3
+        if kind == "descending":
+            x = x.flip(0)
+    elif kind == "equal":
+        x = (torch.randn(D, generator=g) * 1e-3).expand(K, D).clone()
+    elif kind == "duplicate_runs":
+        levels = torch.randn((3, D), generator=g) * 1e-3
+        pick = torch.randint(0, 3, (K, D), generator=g)
+        x = torch.gather(levels, 0, pick)
+    elif kind == "signed_zeros":
+        x = torch.randn((K, D), generator=g) * 1e-3
+        rand = torch.arange(D) % 2 == 1
+        zero = (torch.rand((K, D), generator=g) < 0.4) & rand
+        sign = torch.where(torch.rand((K, D), generator=g) < 0.5, -1.0, 1.0)
+        x = torch.where(zero, 0.0 * sign, x)
+        x[:, : D // 4 * 2: 2] = 0.0          # whole lanes of zeros,
+        x[K // 2:, : D // 4 * 2: 2] = -0.0   # the later rows -0.0
+    else:  # outlier: one row a lane 1000 times the rest, of either sign
+        x = torch.randn((K, D), generator=g) * 1e-3
+        at = torch.randint(0, K, (D,), generator=g)
+        x[at, torch.arange(D)] = torch.where(torch.rand(D, generator=g) < 0.5,
+                                              -1.0, 1.0)
+    return x.contiguous(), rand
+
+
+@pytest.mark.parametrize("kind", COLUMNS)
+@pytest.mark.parametrize("K", DESIGN_KS)
+def test_sort_designs_bit_exact_on_adversarial_columns(cuda, K, kind):
+    """Columns that stress a merge of sorted runs (ascending, descending,
+    all equal, long runs of one value, +-0.0 ties, one huge outlier),
+    through the design each C entry picks at K and through the insertion
+    sort (its `insertion` flag): the f32 median by value,
+    its trimmed mean bit for bit (by value where zeros carry random signs);
+    the fused forms, with and without quantize_out, bit for bit."""
+    D = 6144
+    x, rand = _columns(K, D, kind, 11 * K + COLUMNS.index(kind))
+    srt = torch.sort(x, dim=0).values
+    q, s, _ = ops.quantize_stack(x)
+    w = torch.full((K,), 1.0 / K)
+    xg, qg, sg, wg = x.to(cuda), q.to(cuda), s.to(cuda), w.to(cuda)
+    for ins in (False, True):
+        got = _launch_sort(xg, _CWMED, 0, insertion=ins).cpu()
+        assert torch.equal(got, median_of_sorted(srt)), ins
+        for trim in sorted({1, (K - 1) // 2}):
+            got = _launch_sort(xg, _TRIMMED_MEAN, trim, insertion=ins).cpu()
+            want = trimmed_mean_of_sorted(srt, trim)
+            assert torch.equal(got, want), (ins, trim)
+            assert torch.equal(_bits(got[~rand]), _bits(want[~rand])), (ins, trim)
+        for method, trim in (("cwmed", 0), ("trimmed_mean", 1),
+                             ("trimmed_mean", (K - 1) // 2)):
+            for qout in (False, True):
+                got = _launch_fused(qg, sg, wg, method, trim, qout, insertion=ins)
+                want = fused_agg_ref(q, s, w, method, trim, qout)
+                for a, b in zip(got if qout else (got,), want if qout else (want,)):
+                    assert torch.equal(a.cpu(), b), (ins, method, trim, qout)
+                    if b.dtype == torch.float32:
+                        assert torch.equal(_bits(a), _bits(b)), (ins, method, trim)
+
+
+# the design each C entry reports for K rows (csrc/sort_net.cuh sort_path)
+REPORTED = {1: "register network W=8", 8: "register network W=8",
+            9: "register network W=16", 16: "register network W=16",
+            17: "register network W=32", 32: "register network W=32",
+            33: "run merge R=2", 64: "run merge R=2", 65: "run merge R=3",
+            96: "run merge R=3", 97: "run merge R=4", 128: "run merge R=4",
+            129: "insertion sort in shared memory",
+            200: "insertion sort in shared memory"}
+
+
+@pytest.mark.parametrize("K", sorted(REPORTED))
+def test_sort_entries_report_their_design(cuda, K):
+    """Both C entries report the same design for K, the insertion sort
+    with the `insertion` flag, and the fused entry asks for f32 scratch
+    only where the run merge requantizes (fedavg never sorts)."""
+    assert sort_design(K) == REPORTED[K]
+    assert sort_design(K, insertion=True) == "insertion sort in shared memory"
+    for method in ("cwmed", "trimmed_mean"):
+        assert fused_design(K, method) == REPORTED[K]
+        assert fused_design(K, method, insertion=True) == sort_design(K, True)
+        for qout in (False, True):
+            scratch = _fused_path(K, method, qout, False)[2]
+            assert scratch == (qout and REPORTED[K].startswith("run merge"))
+    assert fused_design(K, "fedavg") == "fedavg"
+
+
 @pytest.mark.parametrize("K", range(1, 21))
 def test_fused_sort_on_every_zero_one_column(cuda, K):
     """The 0-1 proof of the fused kernel's network (see the f32 test
@@ -275,20 +379,25 @@ def test_kernel_counts_its_launches(cuda):
     before = quantize_kernel.launches
     quantize_kernel(torch.zeros(2048, device=cuda))
     assert quantize_kernel.launches == before + 1
-    for K in (8, 33):                    # a register network, shared memory
-        before = fused_agg_kernel.launches
-        fused_agg_kernel(torch.zeros((K, 2048), dtype=torch.int8, device=cuda),
-                         torch.ones((K, 1), device=cuda),
-                         torch.ones(K, device=cuda) / K, method="cwmed")
-        assert fused_agg_kernel.launches == before + 1
-    for K in (8, 33):                    # a register network, shared memory
+    for K in (8, 33):                    # a register network, the run merge
+        design = sort_design(K)
+        for qout in (False, True):       # (and its requantizing pass)
+            before = fused_agg_kernel.launches
+            by = fused_agg_kernel.designs.get(design, 0)
+            fused_agg_kernel(torch.zeros((K, 2048), dtype=torch.int8, device=cuda),
+                             torch.ones((K, 1), device=cuda),
+                             torch.ones(K, device=cuda) / K, method="cwmed",
+                             quantize_out=qout)
+            assert fused_agg_kernel.launches == before + 1
+            assert fused_agg_kernel.designs[design] == by + 1
+    for K in (8, 33):                    # a register network, the run merge
         x = torch.zeros((K, 300), device=cuda)
-        before = cwmed_kernel.launches
-        cwmed_kernel(x)
-        assert cwmed_kernel.launches == before + 1
-        before = trimmed_mean_kernel.launches
-        trimmed_mean_kernel(x, trim=1)
-        assert trimmed_mean_kernel.launches == before + 1
+        design = sort_design(K)
+        for fn, kw in ((cwmed_kernel, {}), (trimmed_mean_kernel, {"trim": 1})):
+            before, by = fn.launches, fn.designs.get(design, 0)
+            fn(x, **kw)
+            assert fn.launches == before + 1
+            assert fn.designs[design] == by + 1
 
 
 def test_round_on_the_card_matches_the_cpu_port(cuda):
