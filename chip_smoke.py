@@ -193,6 +193,26 @@ Phases, one JSON line each:
                     every parameter, and one prompt's prefill logits on a
                     2-unit cut of the same weights against a float64 host
                     prefill; no hot swap, no kernel launches
+           serve_qwen2_vl, serve_jamba_cut  the same for qwen2-vl-7b at
+                    full width and depth (28 layers, 28 / 4 heads, M-RoPE
+                    sections (16, 24, 24): 7,615,616,512 params, 30.46 GB;
+                    text prompts with their positions on all three
+                    streams), with a second float64 check on the cut: a
+                    vision prefill (vlm_batch, 512 tokens around a 16 x 16
+                    patch grid); and for jamba-1.5-large-398b at full width
+                    on the first two layers of its unit, (attn, dense) and
+                    (mamba, moe), once (16 experts top 2, d_inner 16,384:
+                    11,912,897,056 params, 47.65 GB; one whole unit is
+                    about 181 GB), whose float64 check is its Mamba mixer
+                    alone: a 64-token prefill and 8 steps, outputs and
+                    conv / SSM states (``mamba_reference``)
+           flash_check  the port's flash attention (K and V expanded to
+                    the query heads) against dense attention in float64 on
+                    the card, output and the gradients of q, k and v, at
+                    qwen2-vl's causal shape (28 / 4 heads, head 128) and
+                    hubert's bidirectional one (16 / 16, head 80), S = 4096,
+                    B = 1; eager times of the flash forward and forward +
+                    backward beside F.scaled_dot_product_attention's
            train_lm_100m  repro_torch.launch.train.run_lm on the card at the
                     CLI's defaults (repro-100m, 116,411,136 params, batch
                     16, seq 256, lr 3e-4, linear_warmup_cosine(lr, 20,
@@ -220,6 +240,14 @@ Phases, one JSON line each:
                     (1,176,764,416 params), bflc, batch 8, seq 256, AdamW
                     warmup 1: 3 steps, step 1 moves nothing, steps 2-3 move
                     every leaf; s/step, peak memory, busy share, f32 share
+           train_hubert_xlarge  make_train_step on hubert-xlarge at full
+                    width and depth (947,788,800 params), standard masked
+                    prediction on hubert_batch, batch 2 x 4096 frames (the
+                    bidirectional flash path and its recompute backward),
+                    AdamW warmup 1: a warm step that moves nothing and 3
+                    timed steps that move every leaf; s/step, f32 share,
+                    peak memory, busy share; one step's gradients of a
+                    2-unit cut at 2560 frames against float64 on the host
            train_fl  run_fl for 2 rounds at the CLI's defaults (a plain f32
                     chain: no kernel launches but the local trainer's
                     client_gemm): verify(), accuracy in [0, 1]
@@ -2593,45 +2621,104 @@ def batch_invariance(cfg, params, trace, reports,
           f"{path}: requests equal to the batch-1 oracle {equal}")
 
 
-def full_width_reference(cfg, params, prompt,
+def host_f64(tree):
+    """A tree (or a Batch) on the CPU: floating leaves in float64, the rest
+    as they are, None kept."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    if hasattr(tree, "_fields"):            # a NamedTuple: rebuilt by field
+        return type(tree)(*host_f64(tuple(tree)))
+    return tree_map(lambda t: None if t is None else (
+        t.to("cpu", torch.float64) if t.is_floating_point() else t.cpu()),
+        tree)
+
+
+def full_width_reference(cfg, params, batch,
                          path: str = "serve_olmo_1b") -> None:
     """An independent check of the card's full-width arithmetic: the prefill
-    logits of one prompt (its last position, which the first token is the
-    argmax of) against the same prefill on the CPU with float64 weights
-    (its norms, RoPE and attention compute in float32, as the model does),
-    within SERVE_F64_RTOL of the largest logit, with the same argmax."""
+    logits of one batch-1 prompt (its last position, which the first token
+    is the argmax of) against the same prefill on the CPU with float64
+    weights and inputs (its norms, RoPE and attention compute in float32,
+    as the model does), within SERVE_F64_RTOL of the largest logit, with
+    the same argmax.  ``batch`` is a prompt batch on the card (a text
+    prompt, or a vision batch with its image patches)."""
     import torch
 
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models.transformer import Batch
-    from repro_torch.tree import tree_map
 
     t0 = time.perf_counter()
-    prefill = make_prefill_step(cfg, SERVE_MAX_LEN)
-    S = len(prompt)
+    S = int(batch.positions.shape[-1])
+    prefill = make_prefill_step(cfg, max(SERVE_MAX_LEN, S))
     outs = []
-    for dev, tree in ((params["embed"].device, params),
-                      ("cpu", tree_map(lambda t: t.to("cpu", torch.float64),
-                                       params))):
+    for tree, b in ((params, batch),
+                    (host_f64(params), host_f64(batch))):
         with torch.no_grad():
-            outs.append(prefill(tree, Batch(
-                tokens=torch.tensor(prompt[None], dtype=torch.int32,
-                                    device=dev),
-                positions=torch.arange(S, dtype=torch.int32,
-                                       device=dev)[None]))[0][0, -1].cpu())
+            outs.append(prefill(tree, b)[0][0, -1].cpu())
         del tree
     got, want = outs[0].double(), outs[1]
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     top1 = (int(got.argmax()), int(want.argmax()))
     top2 = torch.topk(want, 2).values
+    patches = (0 if batch.embed_mask is None
+               else int(batch.embed_mask.sum()))
     emit(phase="full_width_reference", path=path, prompt_len=S,
-         units=cfg.num_units,
+         image_patches=patches, units=cfg.num_units,
          max_abs_err=err, max_abs_logit=scale, rtol=SERVE_F64_RTOL,
          top1=top1, top2_margin=float(top2[0] - top2[1]),
          seconds=time.perf_counter() - t0)
     check(err <= SERVE_F64_RTOL * scale and top1[0] == top1[1],
           f"{path}: prefill logits off the float64 CPU prefill by "
           f"{err} (max |logit| {scale}), argmax {top1}")
+
+
+def mamba_reference(cfg, params, path: str) -> None:
+    """The first Mamba mixer of the served model at full width against
+    float64 on the host: one MAMBA_PROMPT-token prefill (``mamba_forward``
+    from a zero state) then MAMBA_STEPS ``mamba_step``s, on seeded unit
+    normals (the layer's RMS-normed input is O(1)); the outputs and the
+    final conv and SSM states within SERVE_F64_RTOL of their largest
+    entries.  The float64 run keeps the model's float32 parts (A_log, the
+    scan, the dt / B / C norms), so the check is on the card's matmuls,
+    convolution taps and the scan's exponentials."""
+    import torch
+
+    from repro_torch.models.mamba import mamba_forward, mamba_step
+    from repro_torch.models.transformer import unit_slice
+
+    t0 = time.perf_counter()
+    layer = next(i for i, s in enumerate(cfg.unit) if s.mixer == "mamba")
+    mixer = unit_slice(params["units"], 0)[layer]["mixer"]
+    n = MAMBA_PROMPT + MAMBA_STEPS
+    dev = mixer["in_proj"].device
+    x = torch.randn((1, n, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+
+    def run(p, x):
+        with torch.no_grad():
+            out, state = mamba_forward(p, x[:, :MAMBA_PROMPT], cfg)
+            outs = [out]
+            for t in range(MAMBA_PROMPT, n):
+                o, state = mamba_step(p, x[:, t:t + 1], cfg, state)
+                outs.append(o)
+        return {"out": torch.cat(outs, 1).cpu(), "conv": state["conv"].cpu(),
+                "ssm": state["ssm"].cpu()}
+
+    got = run(mixer, x)
+    # A_log stays float32, as the model keeps it whatever its dtype
+    want = run({**host_f64(mixer), "A_log": mixer["A_log"].cpu()},
+               host_f64(x))
+    errs = {k: float((got[k].double() - want[k].double()).abs().max())
+            / float(want[k].abs().max()) for k in got}
+    emit(phase="mamba_reference", path=path, layer=layer,
+         d_inner=cfg.mamba_d_inner, d_state=cfg.mamba_d_state,
+         dt_rank=cfg.resolved_dt_rank,
+         params=sum(t.numel() for t in mixer.values()),
+         prompt=MAMBA_PROMPT, steps=MAMBA_STEPS, rel_err=errs,
+         rtol=SERVE_F64_RTOL, seconds=time.perf_counter() - t0)
+    check(all(e <= SERVE_F64_RTOL for e in errs.values()),
+          f"{path}: the Mamba mixer off float64 by {errs}")
 
 
 def commit_scored_round(chain, params, updates: dict, scores: dict, *,
@@ -2873,6 +2960,7 @@ def path_serve_olmo_1b() -> dict:
         ChainParamSource, ServeEngine, VirtualClock, WallClock,
         make_poisson_trace,
     )
+    from repro_torch.serve.engine import prompt_batch
     from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
 
     path = "serve_olmo_1b"
@@ -2891,7 +2979,8 @@ def path_serve_olmo_1b() -> dict:
              vocab=cfg.vocab_size, params=n, param_bytes=4 * n,
              init_s=time.perf_counter() - t0)
         trace = make_poisson_trace(vocab_size=cfg.vocab_size, **SERVE_TRACE)
-        full_width_reference(cfg, params, trace[0].prompt)
+        full_width_reference(cfg, params,
+                             prompt_batch(cfg, trace[0].prompt, dev))
         engine = ServeEngine(cfg, params, num_slots=SERVE_SLOTS,
                              max_len=SERVE_MAX_LEN, device=dev)
         t0 = time.perf_counter()
@@ -3034,37 +3123,52 @@ def path_serve_olmo_1b() -> dict:
     return counts
 
 
-# the non-dense archs behind the engine, on serve_olmo_1b's trace: path ->
-# (arch, units or None for the config's depth).  qwen3-moe-30b-a3b keeps 16
-# of its 48 units: all 48 are 122.1 GB of f32 params, 16 are 42.4 GB
-SERVE_ARCHS = {"serve_rwkv6_7b": ("rwkv6-7b", None),
-               "serve_qwen3_moe": ("qwen3-moe-30b-a3b", 16)}
+# the other archs behind the engine, on serve_olmo_1b's trace: path ->
+# (arch, config overrides).  qwen3-moe-30b-a3b keeps 16 of its 48 units
+# (all 48 are 122.1 GB of f32 params, 16 are 42.4 GB); jamba keeps the
+# first two layers of its 8-layer unit, (attn, dense) and (mamba, moe),
+# once (``unit_layers``): 47.65 GB, where one whole unit is about 181 GB
+SERVE_ARCHS = {"serve_rwkv6_7b": ("rwkv6-7b", {}),
+               "serve_qwen3_moe": ("qwen3-moe-30b-a3b", {"num_units": 16}),
+               "serve_qwen2_vl": ("qwen2-vl-7b", {}),
+               "serve_jamba_cut": ("jamba-1.5-large-398b",
+                                   {"unit_layers": 2, "num_units": 1})}
 SERVE_F64_UNITS = 2      # units of the float64 host prefill's cut
+VISION_SEQ, VISION_GRID = 512, (16, 16)    # the vision prefill's batch
+MAMBA_PROMPT, MAMBA_STEPS = 64, 8          # the Mamba mixer's f64 check
 
 
 def path_serve_arch(path: str) -> dict:
-    """A recurrent (RWKV-6) or dense-path MoE model at full width behind the
-    continuous-batching engine, random f32 weights from a seed on the card:
-    the reference CLI's 16-request trace served continuous and static on a
-    WallClock, every request held to its same-row and its batch-1 oracle
-    (slots are reused, so a finished request's recurrent state must not
-    reach the next one), no implicit sync in the engine's loop, one
-    decode tick's times against the bytes bound of reading every
-    parameter, and the prefill logits of one prompt against a float64
-    host prefill of the first SERVE_F64_UNITS units of the same weights
-    (the host cannot hold the whole tree in float64).  No hot swap: a
-    K = 2 update stack of a 30-42 GB model does not fit beside it.  No
-    kernel launches."""
+    """A recurrent (RWKV-6), dense-path MoE, M-RoPE (qwen2-vl) or hybrid
+    (jamba) model at full width behind the continuous-batching engine,
+    random f32 weights from a seed on the card: the reference CLI's
+    16-request trace served continuous and static on a WallClock, every
+    request held to its same-row and its batch-1 oracle (slots are reused,
+    so a finished request's recurrent state must not reach the next one),
+    no implicit sync in the engine's loop, one decode tick's times against
+    the bytes bound of reading every parameter.  Against float64 on the
+    host: the prefill logits of one prompt through the first
+    SERVE_F64_UNITS units of the same weights (the host cannot hold the
+    whole tree in float64); for qwen2-vl also a vision prefill (VISION_SEQ
+    tokens around a VISION_GRID patch grid, M-RoPE image positions); for
+    jamba, whose one unit is the whole cut (95 GB in float64), the Mamba
+    mixer alone (``mamba_reference``).  No hot swap: a K = 2 update stack
+    of a 30-48 GB model does not fit beside it.  No kernel launches."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.device import synchronize
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, vlm_batch
     from repro_torch.serve import ServeEngine, WallClock, make_poisson_trace
+    from repro_torch.serve.engine import prompt_batch
     from repro_torch.tree import tree_leaves, tree_map
 
-    arch, units = SERVE_ARCHS[path]
-    cfg = registry.get_config(arch, **({"num_units": units} if units else {}))
+    arch, kw = SERVE_ARCHS[path]
+    full = registry.get_config(arch)
+    kw = dict(kw)
+    if "unit_layers" in kw:
+        kw["unit"] = full.unit[:kw.pop("unit_layers")]
+    cfg = registry.get_config(arch, **kw)
     dev = torch.device("cuda")
 
     def drive():
@@ -3074,16 +3178,30 @@ def path_serve_arch(path: str) -> dict:
         synchronize(dev)
         n = sum(t.numel() for t in tree_leaves(params))
         emit(phase="serve_setup", path=path, arch=cfg.name,
-             units=cfg.num_units, full_units=registry.get_config(arch).num_units,
-             layers=cfg.num_layers, d_model=cfg.d_model,
+             units=cfg.num_units, full_units=full.num_units,
+             layers=cfg.num_layers, full_layers=full.num_layers,
+             mixers=[s.mixer for s in cfg.unit],
+             mlps=[s.mlp for s in cfg.unit], d_model=cfg.d_model,
              vocab=cfg.vocab_size, experts=cfg.num_experts,
-             experts_per_token=cfg.num_experts_per_tok, params=n,
-             param_bytes=4 * n, init_s=time.perf_counter() - t0)
+             experts_per_token=cfg.num_experts_per_tok, rope=cfg.rope,
+             params=n, param_bytes=4 * n, init_s=time.perf_counter() - t0)
         trace = make_poisson_trace(vocab_size=cfg.vocab_size, **SERVE_TRACE)
-        cut = dataclasses.replace(cfg, num_units=SERVE_F64_UNITS)
-        full_width_reference(cut, {**params, "units": tree_map(
-            lambda t: t[:SERVE_F64_UNITS], params["units"])},
-            trace[0].prompt, path=path)
+        if cfg.num_units > SERVE_F64_UNITS:
+            cut = dataclasses.replace(cfg, num_units=SERVE_F64_UNITS)
+            cut_params = {**params, "units": tree_map(
+                lambda t: t[:SERVE_F64_UNITS], params["units"])}
+            full_width_reference(cut, cut_params,
+                                 prompt_batch(cut, trace[0].prompt, dev),
+                                 path=path)
+            if cfg.frontend == "vision":
+                gh, gw = VISION_GRID
+                full_width_reference(cut, cut_params, vlm_batch(
+                    torch.Generator(device=dev).manual_seed(1), cut, 1,
+                    VISION_SEQ, image_patches=gh * gw, grid=VISION_GRID),
+                    path=path)
+            del cut_params
+        if any(s.mixer == "mamba" for s in cfg.unit):
+            mamba_reference(cfg, params, path)
         engine = ServeEngine(cfg, params, num_slots=SERVE_SLOTS,
                              max_len=SERVE_MAX_LEN, device=dev)
         t0 = time.perf_counter()
@@ -3284,30 +3402,19 @@ class TrainMeter:
                 "profile": prof}
 
 
-def grad_check(cfg, mode: str) -> None:
-    """One step's gradients at GRAD_CHECK_ROWS rows on the card against the
-    same port step on the CPU in float64, from the seeded init and the same
-    Markov-chain batch; the card's step again with TF32 on, which must
+def f64_grad_check(path: str, mode: str, grad_fn, params, batches,
+                   **fields) -> None:
+    """One step's gradients (``grad_fn(params, *batches)``) on the card
+    against the same port step on the CPU with the params and batches in
+    float64: each leaf within GRAD_RTOL[mode] of its largest |g|, the loss
+    within F64_LOSS_RTOL; the card's step again with TF32 on, which must
     miss the limit the float32 step meets."""
-    import numpy as np
     import torch
 
-    from repro_torch.data.lm_synthetic import MarkovLM
-    from repro_torch.launch.steps import make_grad_fn
-    from repro_torch.launch.train import lm_batch
-    from repro_torch.models import init_model
     from repro_torch.tree import tree_map, tree_paths
 
     t0 = time.perf_counter()
-    args = train_args()
-    grad_fn = make_grad_fn(cfg, mode=mode, num_cohorts=GRAD_CHECK_ROWS,
-                           committee_size=args.committee)
-    lm = MarkovLM(cfg.vocab_size, seed=1)
-    rng = np.random.default_rng(7)
-    batch = lm_batch(lm, rng, GRAD_CHECK_ROWS, args.seq, "cuda")
-    val = lm_batch(lm, rng, args.committee, args.seq, "cuda")
-    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
-    g_card, _, ce_card = grad_fn(params, batch, val)
+    g_card, _, ce_card = grad_fn(params, *batches)
     g_card = tree_map(lambda t: t.cpu(), g_card)
     ce_card = float(ce_card)
     card_s = time.perf_counter() - t0
@@ -3316,49 +3423,62 @@ def grad_check(cfg, mode: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        g_tf32 = tree_map(lambda t: t.cpu(), grad_fn(params, batch, val)[0])
+        g_tf32 = tree_map(lambda t: t.cpu(), grad_fn(params, *batches)[0])
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    on_cpu = lambda tree: tree_map(
-        lambda t: None if t is None else (
-            t.to("cpu", torch.float64) if t.is_floating_point() else t.cpu()),
-        tree)
-    p64 = on_cpu(params)
-    del params
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    g64, _, ce64 = grad_fn(p64, type(batch)(*on_cpu(tuple(batch))),
-                           type(val)(*on_cpu(tuple(val))))
+    g64, _, ce64 = grad_fn(host_f64(params), *map(host_f64, batches))
     cpu_s = time.perf_counter() - t0
 
     def worst_leaf(grads):
         worst, worst_path = 0.0, None
-        for (path, a), (_, b) in zip(tree_paths(grads), tree_paths(g64)):
+        for (leaf, a), (_, b) in zip(tree_paths(grads), tree_paths(g64)):
             rel = float((a.double() - b).abs().max()) / max(
                 float(b.abs().max()), 1e-30)
             if rel > worst:
-                worst, worst_path = rel, path
+                worst, worst_path = rel, leaf
         return worst, worst_path
 
     worst, worst_path = worst_leaf(g_card)
     tf32_worst, _ = worst_leaf(g_tf32)
     rtol = GRAD_RTOL[mode]
     loss_rel = abs(ce_card - float(ce64)) / abs(float(ce64))
-    emit(phase="grad_check", path="train_lm_100m", mode=mode,
-         rows=GRAD_CHECK_ROWS, seq=args.seq, loss_card=ce_card,
-         loss_cpu_f64=float(ce64), loss_rel_err=loss_rel,
+    emit(phase="grad_check", path=path, mode=mode, **fields,
+         loss_card=ce_card, loss_cpu_f64=float(ce64), loss_rel_err=loss_rel,
          worst_leaf_rel_err=worst, worst_leaf=list(map(str, worst_path)),
          rtol=rtol, tf32_worst_leaf_rel_err=tf32_worst, card_s=card_s,
          cpu_f64_s=cpu_s)
-    check(worst <= rtol, f"train_lm_100m {mode}: gradient leaf "
-                              f"{worst_path} off the float64 CPU step by "
-                              f"{worst} of its largest |g|")
-    check(loss_rel <= F64_LOSS_RTOL, f"train_lm_100m {mode}: loss off the "
+    check(worst <= rtol, f"{path} {mode}: gradient leaf {worst_path} off "
+                         f"the float64 CPU step by {worst} of its largest |g|")
+    check(loss_rel <= F64_LOSS_RTOL, f"{path} {mode}: loss off the "
                                      f"float64 CPU step by {loss_rel}")
-    check(tf32_worst > rtol, f"train_lm_100m {mode}: the TF32 control is "
-                             f"within {tf32_worst} <= {rtol} of the float64 "
-                             f"step, so the limit cannot tell TF32 from f32")
+    check(tf32_worst > rtol, f"{path} {mode}: the TF32 control is within "
+                             f"{tf32_worst} <= {rtol} of the float64 step, "
+                             f"so the limit cannot tell TF32 from f32")
+
+
+def grad_check(cfg, mode: str) -> None:
+    """``f64_grad_check`` of train_lm_100m's step at GRAD_CHECK_ROWS rows,
+    from the seeded init and a Markov-chain batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.lm_synthetic import MarkovLM
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import init_model
+
+    args = train_args()
+    grad_fn = make_grad_fn(cfg, mode=mode, num_cohorts=GRAD_CHECK_ROWS,
+                           committee_size=args.committee)
+    lm = MarkovLM(cfg.vocab_size, seed=1)
+    rng = np.random.default_rng(7)
+    batch = lm_batch(lm, rng, GRAD_CHECK_ROWS, args.seq, "cuda")
+    val = lm_batch(lm, rng, args.committee, args.seq, "cuda")
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    f64_grad_check("train_lm_100m", mode, grad_fn, params, (batch, val),
+                   rows=GRAD_CHECK_ROWS, seq=args.seq)
 
 
 def context_check() -> None:
@@ -3732,6 +3852,211 @@ def ckpt_kernel_lines(padded, q, s, counts) -> None:
         torch.cuda.empty_cache()
 
 
+# hubert-xlarge at full width and depth (947,788,800 params), masked
+# prediction on hubert_batch at S = 4096 frames: the bidirectional flash
+# path and its recompute backward, AdamW under linear_warmup_cosine(lr,
+# 1, steps) (step 1 at lr 0 is the warm step); the gradient check on a
+# 2-unit cut at S = 2560 (flash too) against float64 on the host
+HUBERT_TRAIN = dict(arch="hubert-xlarge", batch=2, frames=4096, steps=4,
+                    lr=3e-4, grad_units=2, grad_frames=2560, grad_rows=1)
+# the flash check: the port's flash attention against dense attention in
+# float64 on the card, at qwen2-vl's causal GQA shape and hubert's
+# bidirectional one
+FLASH_ARCHS, FLASH_SEQ, FLASH_RTOL = ("qwen2-vl-7b", "hubert-xlarge"), 4096, 1e-4
+
+
+def phase_flash_check() -> None:
+    """The port's flash attention, called as ``attention_forward`` calls it
+    (K and V expanded to the H query heads), against dense attention on the
+    same inputs computed on the card in float64 (the scores materialized,
+    plain autograd): the output and the gradients of q, k and v for a
+    seeded cotangent, each tensor's largest error against its largest
+    entry within FLASH_RTOL.  B = 1, S = FLASH_SEQ, at the head shapes of
+    FLASH_ARCHS.  Beside it, eager CUDA-event times of the flash forward
+    and forward + backward, of ``F.scaled_dot_product_attention`` on the
+    same f32 inputs (the library call, used nowhere in the port), and the
+    f32 operations bound of the full score rectangle the flash loop
+    computes (4 S^2 Dh H forward, 2.5 times that for the recompute
+    backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.models.flash import flash_attention
+
+    S, dev = FLASH_SEQ, torch.device("cuda")
+    for arch in FLASH_ARCHS:
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch)
+        H, Kv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        G = H // Kv
+        g = torch.Generator(device=dev).manual_seed(5)
+        q = torch.randn((1, S, H, Dh), generator=g, device=dev)
+        k, v = (torch.randn((1, S, Kv, Dh), generator=g, device=dev)
+                for _ in range(2))
+        ct = torch.randn((1, S, H, Dh), generator=g, device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        expand = (lambda t: t.repeat_interleave(G, dim=2)) if G > 1 else (
+            lambda t: t)
+
+        def flash(q, k, v):
+            return flash_attention(q, expand(k), expand(v), pos, pos,
+                                   cfg.causal, 0)
+
+        def dense(q, k, v):
+            qg = q.reshape(1, S, Kv, G, Dh) * Dh ** -0.5
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k)
+            if cfg.causal:
+                keep = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+                sc = sc.masked_fill(~keep, float("-inf"))
+            w = torch.softmax(sc, dim=-1)
+            return torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(1, S, H, Dh)
+
+        def value_and_grads(fn, dtype):
+            xs = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+            out = fn(*xs)
+            grads = torch.autograd.grad(out, xs, ct.to(dtype))
+            return [t.detach() for t in (out,) + tuple(grads)]
+
+        got = value_and_grads(flash, torch.float32)
+        want = value_and_grads(dense, torch.float64)
+        errs = {name: float((a.double() - b).abs().max()) / float(b.abs().max())
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        del got, want
+
+        def fwd():
+            with torch.no_grad():
+                flash(q, k, v)
+
+        def fwd_bwd():
+            value_and_grads(flash, torch.float32)
+
+        ke, ve = expand(k), expand(v)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ke, ve))
+
+        def sdpa():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=cfg.causal)
+
+        ops = 4.0 * S * S * Dh * H
+        emit(phase="flash_check", arch=arch, seq=S, heads=H, kv_heads=Kv,
+             head_dim=Dh, causal=cfg.causal, rel_err=errs, rtol=FLASH_RTOL,
+             flash_fwd_ms=eager_ms(fwd, reps=3),
+             flash_fwd_bwd_ms=eager_ms(fwd_bwd, reps=3),
+             sdpa_fwd_ms=eager_ms(sdpa, reps=3),
+             fwd_bound_ms=1e3 * ops / F32_OPS_PER_S,
+             fwd_bwd_bound_ms=1e3 * 3.5 * ops / F32_OPS_PER_S,
+             seconds=time.perf_counter() - t0)
+        check(all(e <= FLASH_RTOL for e in errs.values()),
+              f"flash_check {arch}: off dense float64 attention by {errs}")
+        del q, k, v, ct, ke, ve, qt, kt, vt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def hubert_grad_check(cfg) -> None:
+    """``f64_grad_check`` of a standard step of a HUBERT_TRAIN["grad_units"]
+    -unit cut at ``grad_frames`` frames (over DENSE_MAX: the flash path),
+    from the seeded init and a hubert_batch."""
+    import torch
+
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import hubert_batch, init_model
+
+    o = HUBERT_TRAIN
+    cut = dataclasses.replace(cfg, num_units=o["grad_units"])
+    dev = torch.device("cuda")
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cut)
+    batch = hubert_batch(torch.Generator(device=dev).manual_seed(3), cut,
+                         o["grad_rows"], o["grad_frames"])
+    f64_grad_check("train_hubert_xlarge", "standard",
+                   make_grad_fn(cut, mode="standard"), params, (batch,),
+                   units=cut.num_units, rows=o["grad_rows"],
+                   frames=o["grad_frames"],
+                   masked_frames=int(batch.embed_mask.sum()))
+
+
+def path_train_hubert_xlarge() -> dict:
+    """make_train_step on hubert-xlarge at full width and depth, standard
+    masked prediction (the loss on the masked frames of hubert_batch, no
+    tokens), batch HUBERT_TRAIN["batch"] x 4096 frames: the bidirectional
+    flash attention and its recompute backward in all 48 layers, AdamW.
+    Step 1 (lr 0) is the warm step and moves nothing; the 3 after it are
+    timed on the host clock between device synchronizations and move every
+    leaf; every loss finite.  s/step, tokens/s, model flops against the f32
+    peak, peak memory, and the last step under torch.profiler; then the
+    gradient check (``hubert_grad_check``).  No kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models import hubert_batch, init_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.tree import tree_leaves
+
+    path, o = "train_hubert_xlarge", HUBERT_TRAIN
+    cfg = registry.get_config(o["arch"])
+    dev = torch.device("cuda")
+
+    def drive():
+        held = fresh_peak()
+        opt = adamw(linear_warmup_cosine(o["lr"], 1, o["steps"]))
+        step_fn = make_train_step(cfg, opt, mode="standard")
+        p0 = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        state = TrainState(p0, opt.init(p0),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        seconds, losses, moved, prof_rep = [], [], [], None
+        for i in range(o["steps"]):
+            batch = hubert_batch(gen, cfg, o["batch"], o["frames"])
+            torch.cuda.synchronize()
+            prof = None
+            if i == o["steps"] - 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.stop()
+                prof_rep = device_busy(prof, seconds[-1], 1)
+            losses.append(float(m["loss"]))
+            moved.append(sum(not torch.equal(a, b) for a, b in zip(
+                tree_leaves(state.params), tree_leaves(p0))))
+        n = sum(t.numel() for t in tree_leaves(p0))
+        n_mm = matmul_params(cfg, p0) + p0["conv_pos"]["w"].numel()
+        flops = step_flops(cfg, n_mm, o["batch"], o["frames"])
+        timed = seconds[1:]
+        s_per_step = sum(timed) / len(timed)
+        leaves = len(tree_leaves(p0))
+        emit(phase="train", path=path, mode="standard", arch=cfg.name,
+             params=n, matmul_params=n_mm, batch=o["batch"],
+             frames=o["frames"], losses=losses, step_s=seconds,
+             leaves_moved=moved, leaves=leaves, s_per_step=s_per_step,
+             tokens_per_s=o["batch"] * o["frames"] / s_per_step,
+             model_flops_per_step=flops,
+             f32_peak_share=flops / s_per_step / F32_OPS_PER_S,
+             peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             allocated_before_gb=held, profile=prof_rep)
+        check(n == 947_788_800, f"{path}: {n} params")
+        check(all(math.isfinite(x) for x in losses), f"{path}: losses {losses}")
+        check(moved[0] == 0, f"{path}: step 1 (lr 0) moved {moved[0]} leaves")
+        check(all(m == leaves for m in moved[1:]),
+              f"{path}: steps 2-{o['steps']} moved {moved[1:]} of {leaves}")
+        del state, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+        hubert_grad_check(cfg)
+
+    counts, _ = counted(path, drive, {})
+    check(not any(counts.values()), f"{path}: launches {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def path_train_fl() -> dict:
     """repro_torch.launch.train.run_fl for 2 rounds at the CLI's defaults
     (100 clients, 20 % active, k = 8, 20 local steps, FEMNIST CNN width 16):
@@ -3919,6 +4244,10 @@ def main(argv) -> int:
         later[name] = path_serve_arch(name)
         emit(phase="path_seconds", path=name, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    phase_flash_check()
+    emit(phase="path_seconds", path="flash_check",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     trained = path_train_lm_100m()
     later["train_lm_100m"] = trained.pop("counts")
     emit(phase="path_seconds", path="train_lm_100m",
@@ -3926,6 +4255,7 @@ def main(argv) -> int:
     for name, run in (("serve_checkpoint",
                        lambda: path_serve_checkpoint(trained.pop("params"))),
                       ("train_olmo_1b", path_train_olmo_1b),
+                      ("train_hubert_xlarge", path_train_hubert_xlarge),
                       ("train_fl", path_train_fl)):
         t0 = time.perf_counter()
         later[name] = run()

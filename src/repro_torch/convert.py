@@ -6,9 +6,11 @@ with the same keys, shapes and layouts (HWIO conv kernels, (in, out) dense
 weights; an LM's ``units`` and ``tail`` stay tuples and its unit leaves
 keep their leading ``num_units`` axis, so ``tree_paths`` walks the
 reference's key paths in order; an MoE layer's ``router`` (D, E) and
-expert ``gate`` / ``up`` (E, D, F) and ``down`` (E, F, D), and an RWKV-6
-layer's time-mix and channel-mix leaves, cross as they are), and
-``to_numpy_tree`` is its inverse.
+expert ``gate`` / ``up`` (E, D, F) and ``down`` (E, F, D), an RWKV-6
+layer's time-mix and channel-mix leaves, a Mamba layer's leaves with its
+float32 ``A_log`` (d_inner, d_state) whatever the model's dtype, and the
+audio frontend's ``mask_emb`` (D,) and ``conv_pos`` kernel (31, D/16, D)
+and bias, cross as they are), and ``to_numpy_tree`` is its inverse.
 bfloat16 arrays (the reference's ``moment_dtype=jnp.bfloat16`` moments,
 numpy arrays of ``ml_dtypes.bfloat16``) cross through an int16 view;
 going back, bfloat16 tensors become float32 arrays, which hold every

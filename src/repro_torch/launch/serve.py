@@ -8,9 +8,10 @@ Port of ``repro/launch/serve.py``, with its flags and defaults, plus
       --device cpu
 
 Every decoder of the registry serves: the dense ones, the MoE archs
-(mixtral-8x7b, qwen3-moe-30b-a3b; the dense MoE path) and rwkv6-7b (its
-recurrent state rides in the decode cache).  jamba (mamba) and qwen2-vl
-(M-RoPE) raise ``NotImplementedError``; hubert-xlarge is an encoder.
+(mixtral-8x7b, qwen3-moe-30b-a3b; the dense MoE path), rwkv6-7b and
+jamba-1.5-large-398b (their recurrent states ride in the decode cache)
+and qwen2-vl-7b (text prompts, M-RoPE positions on all three streams);
+hubert-xlarge is an encoder.
 
 ``--static`` switches the admission policy to the whole-batch barrier
 (all requests of a batch start and finish together).  The heavy lifting

@@ -239,11 +239,14 @@ def make_decode_step(cfg: ModelConfig, *, return_logits: bool = True):
 
     ``return_logits=False`` drops the (B, 1, V) logits from the outputs:
     the serving hot loop only needs the argmax token.  The cache is
-    updated in place and returned."""
+    updated in place and returned.  An M-RoPE model takes its (3, B, 1)
+    positions as ``mrope_position`` (default: ``position`` on all three
+    streams)."""
 
-    def serve_step(params, tokens, position, cache):
-        logits, new_cache = model_decode_step(params, cfg, tokens, position,
-                                              cache)
+    def serve_step(params, tokens, position, cache, mrope_position=None):
+        logits, new_cache = model_decode_step(
+            params, cfg, tokens, position, cache,
+            mrope_position=mrope_position)
         next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         if return_logits:
             return next_token[:, None], logits, new_cache

@@ -1,14 +1,24 @@
 """The LM zoo (port of ``repro.models``).
 
-Ported: the config schema, norms, dense / gated MLPs, RoPE, grouped-query
-attention with the sliding-window ring buffer (dense path), MoE (the
-dense path), RWKV-6 (chunked prefill, exact decode), the decode caches
-and the model stack.  Mamba and the jamba hybrid, the audio / vision
-frontends, M-RoPE and the chunked / flash attention path wait for
-ROADMAP.md Queue 1 item 12; the expert-parallel MoE for item 11.
+Ported: the config schema, norms, dense / gated MLPs, RoPE and M-RoPE,
+HuBERT's convolutional position embedding, grouped-query attention with
+the sliding-window ring buffer (dense up to ``DENSE_MAX``, flash with a
+recompute backward beyond), MoE (the dense path), Mamba and the jamba
+hybrid (exact sequential scan), RWKV-6 (chunked prefill, exact decode),
+the audio / vision frontends and their batch stubs, the decode caches and
+the model stack.  The expert-parallel MoE waits for ROADMAP.md Queue 1
+item 11.
 """
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.frontends import (
+    hubert_batch,
+    lm_batch,
+    mrope_positions_for_image,
+    vlm_batch,
+)
+from repro_torch.models.mamba import init_mamba_state, mamba_forward, mamba_step
 from repro_torch.models.transformer import (
     Batch,
     decode_step,
@@ -22,8 +32,16 @@ __all__ = [
     "LayerSpec",
     "ModelConfig",
     "decode_step",
+    "flash_attention",
     "forward",
+    "hubert_batch",
     "init_cache",
+    "init_mamba_state",
     "init_model",
+    "lm_batch",
+    "mamba_forward",
+    "mamba_step",
+    "mrope_positions_for_image",
     "prefill",
+    "vlm_batch",
 ]

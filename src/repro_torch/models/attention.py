@@ -1,22 +1,29 @@
-"""Grouped-query attention with RoPE, causal, bidirectional and
+"""Grouped-query attention with RoPE / M-RoPE, causal, bidirectional and
 sliding-window masking, plus a KV cache for decode.
 
-Port of ``repro/models/attention.py``, dense path only:
-``_dense_attention`` materializes the (S_q, S_kv) scores, which covers
-sequences up to ``DENSE_MAX`` and single-token decode, everything a
-serving node at these lengths runs.  The reference's chunked / flash
-path for longer sequences (``models/flash.py``) waits for ROADMAP.md
-Queue 1 item 12(e) and raises, as M-RoPE (item 12(d)) does.  Attention is plain PyTorch (matmuls and a
-float32 masked softmax), as the reference's is plain JAX.
+Port of ``repro/models/attention.py``.  Two execution paths, as there:
+
+* ``_dense_attention`` materializes the (S_q, S_kv) scores; used for
+  sequences up to ``DENSE_MAX`` and single-token decode.
+* over ``DENSE_MAX``, ``models.flash.flash_attention``: the online
+  softmax over 512-key blocks with a recompute backward, K and V first
+  expanded to the H query heads.  It needs S to be a multiple of 512 and
+  has no logit softcap; otherwise ``ValueError`` (never a fall back to
+  the dense path).
+
+The reference's ``_chunked_attention`` has no caller there and is not
+ported.  Attention is plain PyTorch (matmuls and a float32 masked
+softmax), as the reference's is plain JAX.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ATTN_LOCAL, ATTN_SWA, ModelConfig
-from repro_torch.models.layers import apply_mrope, apply_rope, dense_init, not_ported
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 
 DENSE_MAX = 2048     # max sequence length for the dense path
 
@@ -136,17 +143,23 @@ def attention_forward(
 
     With ``return_kv=True`` also returns the rotated K and V (for prefill
     cache construction)."""
-    S = x.shape[1]
-    if S > DENSE_MAX:
-        raise not_ported(f"attention over S = {S} > DENSE_MAX = {DENSE_MAX} "
-                         f"(the chunked / flash path)")
     q, k, v = _project_qkv(params, x, cfg)
     q = _rotate(q, positions, cfg)
     k = _rotate(k, positions, cfg)
     pos2d = positions[0] if positions.dim() == 3 else positions
     window = cfg.sliding_window if is_windowed(mixer) else 0
-    mask = _pair_mask(pos2d, pos2d, causal=cfg.causal, window=window)
-    out = _dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
+    if x.shape[1] <= DENSE_MAX:
+        mask = _pair_mask(pos2d, pos2d, causal=cfg.causal, window=window)
+        out = _dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
+    else:
+        if cfg.attn_logit_softcap > 0:
+            raise ValueError("the flash path has no logit softcap")
+        # KV expanded to the full H heads, as the reference does
+        G = cfg.num_heads // cfg.num_kv_heads
+        k_e = k.repeat_interleave(G, dim=2) if G > 1 else k
+        v_e = v.repeat_interleave(G, dim=2) if G > 1 else v
+        out = flash_attention(q, k_e, v_e, pos2d, pos2d, cfg.causal, window,
+                              q_block=512)
     B, Sq = out.shape[0], out.shape[1]
     out = out.reshape(B, Sq, -1) @ params["wo"]
     if return_kv:
@@ -163,6 +176,7 @@ def attention_decode(
     cache_pos: torch.Tensor,    # (B,Sc) absolute position per slot (-1 invalid)
     cfg: ModelConfig,
     mixer: str,
+    mrope_position: Optional[torch.Tensor] = None,   # (3,B,1) for mrope
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode against a (possibly ring-buffer) KV cache.
 
@@ -170,12 +184,17 @@ def attention_decode(
     written in place (the new token's slot) and returned: the reference's
     engine donates them to the step for the same effect.  Keys are stored
     rotated, so the cache never needs re-rotation.  Sliding-window layers
-    use a ring buffer: slot = position % Sc.
+    use a ring buffer: slot = position % Sc.  An M-RoPE model rotates by
+    ``mrope_position`` when it is given, else by the position on all three
+    streams.
     """
     q, k, v = _project_qkv(params, x, cfg)
     if cfg.rope == "mrope":
-        raise not_ported("M-RoPE decode")
-    if cfg.rope != "none":
+        rp = (mrope_position if mrope_position is not None
+              else position[None, :, None].expand(3, position.shape[0], 1))
+        q = apply_mrope(q, rp, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, rp, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope != "none":
         q = apply_rope(q, position[:, None], cfg.rope_theta)
         k = apply_rope(k, position[:, None], cfg.rope_theta)
 

@@ -1,27 +1,27 @@
 """Decode-cache containers for the layer stack.
 
-Port of ``repro/models/cache.py`` for attention and RWKV-6 mixers.  A
-model cache is ``{"units": stacked, "tail": (per-layer, ...)}``, where
+Port of ``repro/models/cache.py``.  A model cache is ``{"units": stacked, "tail": (per-layer, ...)}``, where
 ``stacked`` is a tuple over the unit's layers whose leaves carry a
 leading ``num_units`` axis, as the reference's scanned cache does.
 
 Per-layer cache by mixer kind:
   attn / attn_global : {"k": (B, max_len, Kv, hd), "v": ..., "pos": (B, max_len)}
   attn_swa / local   : same, but length min(window, max_len) (ring buffer)
+  mamba              : {"conv": (B, dc-1, din), "ssm": (B, din, ds) f32}
   rwkv6              : {"tm": {shift (B, D), wkv (B, H, dh, dh) f32},
                         "cm": {shift (B, D)}}
 A recurrent state has no position: every leaf of a slot's row is
 overwritten when a request is inserted, so nothing of the slot's last
-request survives.  The mamba state waits for ROADMAP.md Queue 1 item 12(b).
+request survives.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import is_windowed
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import not_ported
 from repro_torch.tree import tree_map
 
 
@@ -43,10 +43,10 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                              device=device),
             "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
         }
+    if spec.mixer == "mamba":
+        return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
     if spec.mixer == "rwkv6":
         return rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
-    if spec.mixer == "mamba":
-        raise not_ported(f"the {spec.mixer} decode state")
     raise ValueError(spec.mixer)
 
 

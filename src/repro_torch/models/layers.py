@@ -1,15 +1,12 @@
-"""Shared building blocks of the LM zoo: init helpers, norms, MLPs, RoPE.
+"""Shared building blocks of the LM zoo: init helpers, norms, MLPs, RoPE
+and M-RoPE, HuBERT's convolutional position embedding.
 
 Port of ``repro/models/layers.py``.  Parameters are plain nested dicts of
 tensors with the reference's keys and layouts (dense weights ``(in,
-out)``); every ``init_*`` draws from an explicit ``torch.Generator`` and
-makes its tensors on the generator's device, and every ``apply`` is a
-function of its inputs.  Norms and RoPE compute in float32 and cast back,
-as the reference does.
-
-M-RoPE (Qwen2-VL) and HuBERT's convolutional position embedding wait for
-ROADMAP.md Queue 1 item 12(d) with the frontends and raise
-``NotImplementedError``.
+out)``, the conv position kernel ``(W, I, O)``); every ``init_*`` draws
+from an explicit ``torch.Generator`` and makes its tensors on the
+generator's device, and every ``apply`` is a function of its inputs.
+Norms and RoPE compute in float32 and cast back, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,13 +17,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-
-LM_ZOO_ITEM = "ROADMAP.md Queue 1 item 12 (the rest of the LM zoo)"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {LM_ZOO_ITEM}")
-
 
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name ("float32", "bfloat16", ...) as a torch dtype."""
@@ -42,8 +32,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    """Float32 normals on the generator's device, times ``std``."""
-    return torch.randn(shape, generator=gen, device=gen.device) * std
+    """Float32 normals on the generator's device, times ``std`` (in place:
+    a full-width expert stack is 12.9 GB)."""
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, dtype,
@@ -170,19 +161,52 @@ def apply_rope(
     return out.to(x.dtype)
 
 
-def apply_mrope(x, positions, theta: float, sections: Tuple[int, ...]):
-    """Multimodal RoPE (Qwen2-VL): waits for item 12(d)."""
-    raise not_ported("M-RoPE (apply_mrope)")
+def apply_mrope(
+    x: torch.Tensor,          # (B, S, H, Dh)
+    positions: torch.Tensor,  # (3, B, S) int — (t, h, w) streams
+    theta: float,
+    sections: Tuple[int, ...],
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): head_dim/2 frequency slots are partitioned
+    into (temporal, height, width) sections, each rotated by its own position
+    stream.  For pure-text tokens all three streams coincide and M-RoPE
+    reduces exactly to standard RoPE."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # (half,)
+    # the stream each frequency slot takes its position from
+    stream_id = torch.cat([
+        torch.full((n,), i, dtype=torch.long, device=x.device)
+        for i, n in enumerate(sections)])                          # (half,)
+    pos = positions.movedim(0, -1)[..., stream_id]                 # (B,S,half)
+    angles = pos.to(torch.float32) * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ----------------------------------------------------------------------------
-# conv positional embedding (HuBERT)
+# conv positional embedding (HuBERT-style, grouped 1-D conv over time)
 # ----------------------------------------------------------------------------
 
 
-def init_conv_pos(gen, cfg: ModelConfig, dtype, kernel: int = 31, groups: int = 16):
-    raise not_ported("the convolutional position embedding (init_conv_pos)")
+def init_conv_pos(gen: torch.Generator, cfg: ModelConfig, dtype,
+                  kernel: int = 31, groups: int = 16) -> dict:
+    per_group = cfg.d_model // groups
+    w = normal(gen, (kernel, per_group, cfg.d_model),
+               1.0 / math.sqrt(kernel * per_group))
+    return {"w": w.to(dtype),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)}
 
 
-def apply_conv_pos(params: dict, x, groups: int = 16):
-    raise not_ported("the convolutional position embedding (apply_conv_pos)")
+def apply_conv_pos(params: dict, x: torch.Tensor, groups: int = 16) -> torch.Tensor:
+    """x: (B, S, D); a grouped conv over S with 'SAME' padding, then the
+    bias and tanh-approximated GELU.  The (W, I, O) kernel is conv1d's
+    (O, I, W) weight with no flip: both are cross-correlations."""
+    w = params["w"]
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0),
+                 padding=(w.shape[0] - 1) // 2, groups=groups)
+    return F.gelu(y.transpose(1, 2) + params["b"], approximate="tanh")

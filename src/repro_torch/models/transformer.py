@@ -1,8 +1,8 @@
 """The model stack: embedding -> layer units -> head.
 
-Port of ``repro/models/transformer.py`` for attention and RWKV-6 mixers
-with dense, MoE (the dense path) and RWKV channel-mix MLPs.  Three entry
-points:
+Port of ``repro/models/transformer.py``: attention, Mamba and RWKV-6
+mixers with dense, MoE (the dense path) and RWKV channel-mix MLPs, and the
+audio (HuBERT) and vision (Qwen2-VL) frontends.  Three entry points:
   * ``forward``     — full-sequence, no cache.
   * ``prefill``     — full-sequence, returns the last logits + a filled
     decode cache.
@@ -24,10 +24,14 @@ each layer inside it (``torch.utils.checkpoint``, non-reentrant).
 
 The forward paths return the MoE router's load-balance loss summed over
 the layers as the reference sums it (each unit's layers from zero, then
-the units in order, then the tail).  Mamba layers (and so the jamba
-hybrid) and the audio / vision frontends wait for ROADMAP.md Queue 1 item
-12: ``init_model`` and the forward paths raise ``NotImplementedError`` for
-them.
+the units in order, then the tail).
+
+The audio frontend takes frame embeddings (``Batch.embeds``), puts the
+learned mask embedding in the masked frames and adds the convolutional
+position embedding; it has no token embedding and no decode step.  The
+vision frontend writes patch embeddings over the token embeddings
+wherever ``embed_mask`` is set, and its positions are M-RoPE's (3, B, S)
+streams.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.models.attention import (
     init_attention,
 )
 from repro_torch.models.cache import attn_cache_len
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.config import (
     MLP_DENSE,
@@ -52,12 +57,14 @@ from repro_torch.models.config import (
     ModelConfig,
 )
 from repro_torch.models.layers import (
+    apply_conv_pos,
     apply_mlp,
     apply_norm,
     embed_init,
+    init_conv_pos,
     init_mlp,
     init_norm,
-    not_ported,
+    normal,
     torch_dtype,
 )
 from repro_torch.models.moe import apply_moe, init_moe
@@ -70,21 +77,9 @@ class Batch(NamedTuple):
     tokens: Optional[torch.Tensor] = None        # (B,S) int
     embeds: Optional[torch.Tensor] = None        # (B,S,D)
     embed_mask: Optional[torch.Tensor] = None    # (B,S) bool: use embeds here
-    positions: Optional[torch.Tensor] = None     # (B,S) int
+    positions: Optional[torch.Tensor] = None     # (B,S) or (3,B,S) int
     targets: Optional[torch.Tensor] = None       # (B,S) int
     loss_mask: Optional[torch.Tensor] = None     # (B,S) float32
-
-
-def _check_layer(spec: LayerSpec) -> None:
-    if not (spec.mixer.startswith("attn") or spec.mixer == "rwkv6"):
-        raise not_ported(f"the {spec.mixer} mixer")
-    if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_RWKV, MLP_NONE):
-        raise ValueError(spec.mlp)
-
-
-def _check_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise not_ported(f"the {cfg.frontend} frontend")
 
 
 # ----------------------------------------------------------------------------
@@ -93,10 +88,15 @@ def _check_frontend(cfg: ModelConfig) -> None:
 
 
 def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, dtype):
-    _check_layer(spec)
-    p = {"norm1": init_norm(cfg, dtype, gen.device),
-         "mixer": (rwkv_mod.init_rwkv_time_mix(gen, cfg, dtype)
-                   if spec.mixer == "rwkv6" else init_attention(gen, cfg, dtype))}
+    p = {"norm1": init_norm(cfg, dtype, gen.device)}
+    if spec.mixer.startswith("attn"):
+        p["mixer"] = init_attention(gen, cfg, dtype)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_mod.init_mamba(gen, cfg, dtype)
+    elif spec.mixer == "rwkv6":
+        p["mixer"] = rwkv_mod.init_rwkv_time_mix(gen, cfg, dtype)
+    else:
+        raise ValueError(spec.mixer)
     if spec.mlp != MLP_NONE:
         p["norm2"] = init_norm(cfg, dtype, gen.device)
     if spec.mlp == MLP_DENSE:
@@ -113,14 +113,19 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
     The reference's ``jax.random`` stream cannot be reproduced: parity runs
     carry the reference's params across (``repro_torch.convert``)."""
-    _check_frontend(cfg)
-    for spec in cfg.all_layers():
-        _check_layer(spec)
     dtype = torch_dtype(cfg.dtype)
-    params: dict = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),
-    }
-    if cfg.num_units:
+    params: dict = {}
+    if cfg.frontend == "audio":
+        params["mask_emb"] = normal(gen, (cfg.d_model,), 0.02).to(dtype)
+        params["conv_pos"] = init_conv_pos(gen, cfg, dtype)
+    else:
+        params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                     dtype=dtype)
+    if cfg.num_units == 1:
+        # one unit: its leaves with a unit axis of 1, no copy
+        params["units"] = tree_map(lambda t: t[None], tuple(
+            init_layer(gen, spec, cfg, dtype) for spec in cfg.unit))
+    elif cfg.num_units:
         # each unit drawn in turn and copied into its row of the stacked
         # leaves: the peak is the model and one unit, not the model twice
         units = None
@@ -154,8 +159,18 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Batch) -> torch.Tensor:
-    _check_frontend(cfg)
-    return _embed_tokens(params, cfg, batch.tokens)
+    if cfg.frontend == "audio":
+        x = batch.embeds
+        if batch.embed_mask is not None:
+            # masked prediction: masked frames take the mask embedding
+            x = torch.where(batch.embed_mask[..., None],
+                            params["mask_emb"][None, None], x)
+        return x + apply_conv_pos(params["conv_pos"], x)
+    x = _embed_tokens(params, cfg, batch.tokens)
+    if batch.embeds is not None and batch.embed_mask is not None:
+        # VLM: image-pad slots take the projected patch embeddings
+        x = torch.where(batch.embed_mask[..., None], batch.embeds, x)
+    return x
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -174,19 +189,27 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
                         positions: torch.Tensor, cfg: ModelConfig,
                         collect_cache: bool, max_len: int):
     """Returns (x, aux_loss, cache_entry_or_None)."""
-    _check_layer(spec)
     h = apply_norm(lp["norm1"], x, cfg)
     cache_entry = None
-    if spec.mixer == "rwkv6":
+    if spec.mixer.startswith("attn"):
+        if collect_cache:
+            mixed, krot, vrot = attention_forward(
+                lp["mixer"], h, positions, cfg, spec.mixer, return_kv=True)
+            cache_entry = _kv_to_cache(cfg, spec, krot, vrot, positions,
+                                       max_len)
+        else:
+            mixed = attention_forward(lp["mixer"], h, positions, cfg,
+                                      spec.mixer)
+    elif spec.mixer == "mamba":
+        mixed, state = mamba_mod.mamba_forward(lp["mixer"], h, cfg)
+        if collect_cache:
+            cache_entry = state
+    elif spec.mixer == "rwkv6":
         mixed, tm_state = rwkv_mod.rwkv_time_mix_forward(lp["mixer"], h, cfg)
         if collect_cache:
             cache_entry = {"tm": tm_state}
-    elif collect_cache:
-        mixed, krot, vrot = attention_forward(lp["mixer"], h, positions, cfg,
-                                              spec.mixer, return_kv=True)
-        cache_entry = _kv_to_cache(cfg, spec, krot, vrot, positions, max_len)
     else:
-        mixed = attention_forward(lp["mixer"], h, positions, cfg, spec.mixer)
+        raise ValueError(spec.mixer)
     x = x + mixed
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mlp != MLP_NONE:
@@ -196,7 +219,7 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
         elif spec.mlp == MLP_MOE:
             y, aux = apply_moe(lp["mlp"], h2, cfg)
             x = x + y
-        else:
+        elif spec.mlp == MLP_RWKV:
             y, cm_state = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg)
             x = x + y
             if cache_entry is not None:
@@ -234,18 +257,23 @@ def _write_state(cache: dict, new: dict) -> None:
 
 
 def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
-                       position: torch.Tensor, cache: dict, cfg: ModelConfig):
+                       position: torch.Tensor, cache: dict, cfg: ModelConfig,
+                       mrope_position: Optional[torch.Tensor] = None):
     """One token through one layer; ``cache`` is written in place."""
-    _check_layer(spec)
     h = apply_norm(lp["norm1"], x, cfg)
-    if spec.mixer == "rwkv6":
+    if spec.mixer.startswith("attn"):
+        mixed, _, _, _ = attention_decode(
+            lp["mixer"], h, position, cache["k"], cache["v"], cache["pos"],
+            cfg, spec.mixer, mrope_position=mrope_position,
+        )
+    elif spec.mixer == "mamba":
+        mixed, state = mamba_mod.mamba_step(lp["mixer"], h, cfg, cache)
+        _write_state(cache, state)
+    elif spec.mixer == "rwkv6":
         mixed, tm = rwkv_mod.rwkv_time_mix_step(lp["mixer"], h, cfg, cache["tm"])
         _write_state(cache["tm"], tm)
     else:
-        mixed, _, _, _ = attention_decode(
-            lp["mixer"], h, position, cache["k"], cache["v"], cache["pos"],
-            cfg, spec.mixer,
-        )
+        raise ValueError(spec.mixer)
     x = x + mixed
     if spec.mlp != MLP_NONE:
         h2 = apply_norm(lp["norm2"], x, cfg)
@@ -253,7 +281,7 @@ def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
             x = x + apply_mlp(lp["mlp"], h2, cfg)
         elif spec.mlp == MLP_MOE:
             x = x + apply_moe(lp["mlp"], h2, cfg)[0]
-        else:
+        elif spec.mlp == MLP_RWKV:
             y, cm = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg,
                                                       state=cache["cm"])
             _write_state(cache["cm"], cm)
@@ -372,18 +400,21 @@ def decode_step(
     tokens: torch.Tensor,        # (B,1) int
     position: torch.Tensor,      # (B,) int32
     cache: dict,
+    mrope_position: Optional[torch.Tensor] = None,   # (3,B,1)
+    embeds: Optional[torch.Tensor] = None,           # (B,1,D) frontend decode
 ):
     """One decode step: returns (logits (B,1,V), cache), the cache updated
-    in place."""
-    _check_frontend(cfg)
-    x = _embed_tokens(params, cfg, tokens)
+    in place.  ``embeds``, when given, replace the token embeddings."""
+    if cfg.frontend == "audio":
+        raise ValueError("encoder-only architectures have no decode step")
+    x = embeds if embeds is not None else _embed_tokens(params, cfg, tokens)
     for u in range(cfg.num_units):
         unit_params = unit_slice(params["units"], u)
         unit_cache = unit_slice(cache["units"], u)
         for i, spec in enumerate(cfg.unit):
             x = apply_layer_decode(unit_params[i], spec, x, position,
-                                   unit_cache[i], cfg)
+                                   unit_cache[i], cfg, mrope_position)
     for i, spec in enumerate(cfg.tail):
         x = apply_layer_decode(params["tail"][i], spec, x, position,
-                               cache["tail"][i], cfg)
+                               cache["tail"][i], cfg, mrope_position)
     return lm_logits(params, cfg, x), cache

@@ -38,7 +38,7 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_cache
 from repro_torch.models.cache import insert_slot_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import not_ported, torch_dtype
+from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import Batch
 from repro_torch.serve.scheduler import FifoScheduler
 from repro_torch.serve.slots import Request, RequestResult, SlotTable
@@ -92,6 +92,30 @@ class VirtualClock:
 
 
 # ----------------------------------------------------------------------------
+# the steps' inputs
+# ----------------------------------------------------------------------------
+
+
+def prompt_batch(cfg: ModelConfig, prompt: np.ndarray, device) -> Batch:
+    """A batch-1 prefill of ``prompt``.  An M-RoPE model's prompt is text:
+    its (3, 1, S) positions are the token positions on all three streams,
+    with zero ``embeds`` and an all-False ``embed_mask``, as the reference
+    engine builds it.  Its decode steps rotate by each slot's position on
+    all three streams, the decode step's default."""
+    S = int(prompt.shape[0])
+    toks = to_device(np.asarray(prompt, np.int32)[None], device)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    if cfg.rope != "mrope":
+        return Batch(tokens=toks, positions=pos)
+    return Batch(tokens=toks, positions=pos[None].expand(3, 1, S),
+                 embeds=torch.zeros((1, S, cfg.d_model),
+                                    dtype=torch_dtype(cfg.dtype),
+                                    device=device),
+                 embed_mask=torch.zeros((1, S), dtype=torch.bool,
+                                        device=device))
+
+
+# ----------------------------------------------------------------------------
 # the single-request oracle
 # ----------------------------------------------------------------------------
 
@@ -113,10 +137,7 @@ def greedy_oracle(cfg: ModelConfig, params, prompt: np.ndarray, max_new: int,
     prefill = make_prefill_step(cfg, max_len=max_len)
     decode = make_decode_step(cfg, return_logits=return_logits)
     S = int(prompt.shape[0])
-    batch = Batch(
-        tokens=to_device(np.asarray(prompt, np.int32)[None], device),
-        positions=torch.arange(S, dtype=torch.int32, device=device)[None])
-    logits, slot_cache = prefill(params, batch)
+    logits, slot_cache = prefill(params, prompt_batch(cfg, prompt, device))
     first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     cache = insert_slot_cache(
         init_cache(cfg, rows, max_len, params["embed"].dtype, device),
@@ -188,8 +209,6 @@ class ServeEngine:
     ):
         if not cfg.is_decoder():
             raise ValueError(f"{cfg.name} is encoder-only: nothing to serve")
-        if cfg.rope == "mrope":
-            raise not_ported("serving an M-RoPE model")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
@@ -228,12 +247,6 @@ class ServeEngine:
         positions[b:b + 1].fill_(pos0)
         return tokens, positions, cache
 
-    def _make_prompt_batch(self, prompt: np.ndarray) -> Batch:
-        S = int(prompt.shape[0])
-        toks = to_device(np.asarray(prompt, np.int32)[None], self.device)
-        pos = torch.arange(S, dtype=torch.int32, device=self.device)[None]
-        return Batch(tokens=toks, positions=pos)
-
     def _fresh_state(self):
         tokens = torch.zeros((self.num_slots, 1), dtype=torch.int32,
                              device=self.device)
@@ -250,8 +263,8 @@ class ServeEngine:
         allocator's pools)."""
         tokens, positions, cache = self._fresh_state()
         for S in sorted(set(int(s) for s in prompt_lens)):
-            batch = self._make_prompt_batch(np.zeros((S,), np.int32))
-            tok, slot_cache = self._prefill(batch)
+            tok, slot_cache = self._prefill(prompt_batch(
+                self.cfg, np.zeros((S,), np.int32), self.device))
             tokens, positions, cache = self._insert(
                 cache, tokens, positions, slot_cache, tok, S, 0)
         tokens, positions, cache = self._tick(tokens, positions, cache)
@@ -344,7 +357,7 @@ class ServeEngine:
                 res.admitted = clock.now()
                 res.version_admitted = self.version
                 tok, slot_cache = self._prefill(
-                    self._make_prompt_batch(req.prompt))
+                    prompt_batch(self.cfg, req.prompt, self.device))
                 one_shot = req.max_new == 1
                 pending.append(_Pending(
                     tok=HostCopy(tok),

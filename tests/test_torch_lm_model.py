@@ -1,20 +1,27 @@
 """The port's LM zoo against the reference's ``repro.models``.
 
-Over the smoke configs of olmo-1b (non-parametric LayerNorm, tied
-embeddings), qwen1.5-4b (QKV bias), phi4-mini (GQA, RMSNorm, SwiGLU),
-gemma3-4b (GeGLU, scaled embeddings, local / global attention with a
-ring buffer, a tail), mixtral-8x7b (sliding-window attention, MoE top 2
-of 4), qwen3-moe-30b-a3b (MoE) and rwkv6-7b (RWKV-6 time and channel
-mix, chunked prefill, recurrent decode state), the reference's params
-are carried across through
-``repro_torch.convert`` and the same numpy tokens go to both packages,
-whose model functions run as the reference compiles them (``jax.jit``).
+Over the smoke configs of all ten archs: olmo-1b (non-parametric
+LayerNorm, tied embeddings), qwen1.5-4b (QKV bias), phi4-mini (GQA,
+RMSNorm, SwiGLU), gemma3-4b (GeGLU, scaled embeddings, local / global
+attention with a ring buffer, a tail), mixtral-8x7b (sliding-window
+attention, MoE top 2 of 4), qwen3-moe-30b-a3b (MoE), rwkv6-7b (RWKV-6
+time and channel mix, chunked prefill, recurrent decode state),
+jamba-1.5-large-398b (the attention + Mamba / MoE hybrid unit, the Mamba
+conv and SSM decode state), hubert-xlarge (the audio frontend: masked
+frames, the conv position embedding, bidirectional attention, no decode
+step) and qwen2-vl-7b (the vision frontend: patch embeddings over the
+image slots, M-RoPE positions in prefill and decode), the reference's
+params are carried across through ``repro_torch.convert`` and the same
+numpy batches go to both packages (for hubert and qwen2-vl the
+reference's own ``hubert_batch`` / ``vlm_batch``, as numpy), whose model
+functions run as the reference compiles them (``jax.jit``).
 
 Tolerances: the matmuls sum in another order than XLA's, so logits agree
 to ``atol=1e-5`` (they are O(1); the largest difference seen is about
 1e-6), the prefill cache's keys and values to ``atol=1e-5`` and its
 positions exactly (the RWKV-6 wkv state, a sum over the tokens so far of
-size O(10), to ``atol=1e-5`` of its largest entry), over a forward pass,
+size O(10), and the Mamba SSM state to ``atol=1e-5`` of their largest
+entries), over a forward pass,
 a prefill
 and 8 teacher-forced decode steps; the MoE routers' aux loss within
 ``atol=1e-6``.  The int8 chain codec's blob of the params is bit for bit
@@ -40,6 +47,8 @@ from repro.models import decode_step as j_decode
 from repro.models import forward as j_forward
 from repro.models import init_model as j_init
 from repro.models import prefill as j_prefill
+from repro.models.frontends import hubert_batch as j_hubert_batch
+from repro.models.frontends import vlm_batch as j_vlm_batch
 from repro.models.transformer import Batch as JBatch
 from repro_torch.configs import registry
 from repro_torch.convert import from_numpy_tree
@@ -49,12 +58,13 @@ from repro_torch.tree import tree_paths
 
 torch.set_num_threads(2)
 DENSE = ("olmo-1b", "qwen1.5-4b", "phi4-mini-3.8b", "gemma3-4b")
-HELD = DENSE + ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b")
-# the three archs whose mixers or frontends wait for item 12 (mamba and
-# the jamba hybrid, the audio and vision frontends)
-NOT_YET = tuple(a for a in registry.ARCH_IDS if a not in HELD)
+HELD = DENSE + ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
+                "jamba-1.5-large-398b", "hubert-xlarge", "qwen2-vl-7b")
 ATOL = 1e-5
 B, PROMPT, STEPS, MAX_LEN = 2, 20, 8, 32
+# qwen2-vl's batch: text, a 3 x 4 patch grid, text; the image lies in the
+# prompt and decode continues the text after it
+IMAGE_PATCHES, GRID = 12, (3, 4)
 
 
 def _key_path(path):
@@ -80,6 +90,34 @@ def _tokens(cfg, seed=0):
     return rng.integers(0, cfg.vocab_size, (B, PROMPT + STEPS)).astype(np.int32)
 
 
+def _batch_np(jcfg, seed=0) -> dict:
+    """The (B, PROMPT + STEPS) batch of an arch as numpy fields: numpy
+    tokens for a text model, the reference's own frontend batch for the
+    audio and vision ones."""
+    if jcfg.frontend == "audio":
+        jb = j_hubert_batch(jax.random.PRNGKey(seed), jcfg, B, PROMPT + STEPS)
+    elif jcfg.frontend == "vision":
+        jb = j_vlm_batch(jax.random.PRNGKey(seed), jcfg, B, PROMPT + STEPS,
+                         image_patches=IMAGE_PATCHES, grid=GRID)
+    else:
+        return {"tokens": _tokens(jcfg, seed)}
+    return {k: np.asarray(v) for k, v in jb._asdict().items()
+            if k in ("tokens", "embeds", "embed_mask", "positions")
+            and v is not None}
+
+
+def _upto(fields: dict, n: int) -> dict:
+    """The first n positions of every field (M-RoPE positions on axis 2)."""
+    return {k: v[:, :, :n] if k == "positions" and v.ndim == 3 else v[:, :n]
+            for k, v in fields.items()}
+
+
+def _batches(fields: dict):
+    return (JBatch(**{k: jnp.asarray(v) for k, v in fields.items()}),
+            Batch(**{k: torch.from_numpy(np.array(v))
+                     for k, v in fields.items()}))
+
+
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_registry_matches_reference(arch):
     for port_cfg, ref_cfg in ((registry.get_config(arch), jreg.get_config(arch)),
@@ -94,17 +132,6 @@ def test_registry_matches_reference(arch):
         assert registry.param_count(registry.get_config(arch)) == 1_176_764_416
 
 
-@pytest.mark.parametrize("arch", NOT_YET)
-def test_unported_arch_raises_at_init(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        init_model(torch.Generator().manual_seed(0), registry.smoke_config(arch))
-
-
-def test_three_archs_still_wait():
-    assert set(NOT_YET) == {"jamba-1.5-large-398b", "hubert-xlarge",
-                            "qwen2-vl-7b"}
-
-
 @pytest.mark.parametrize("arch", HELD)
 def test_init_model_paths_and_shapes(arch, ref_params):
     cfg = registry.smoke_config(arch)
@@ -117,7 +144,9 @@ def test_init_model_paths_and_shapes(arch, ref_params):
 
 
 @pytest.mark.parametrize("arch", ("olmo-1b", "gemma3-4b", "mixtral-8x7b",
-                                  "qwen3-moe-30b-a3b", "rwkv6-7b"))
+                                  "qwen3-moe-30b-a3b", "rwkv6-7b",
+                                  "jamba-1.5-large-398b", "hubert-xlarge",
+                                  "qwen2-vl-7b"))
 def test_converted_tree_keeps_reference_key_paths(arch, ref_params):
     ref = ref_params(arch)
     port = from_numpy_tree(ref)
@@ -134,30 +163,30 @@ def test_forward_prefill_decode_match_reference(arch, ref_params):
     jcfg, cfg = jreg.smoke_config(arch), registry.smoke_config(arch)
     ref = ref_params(arch)
     jp, tp = jax.tree.map(jnp.asarray, ref), from_numpy_tree(ref)
-    toks = _tokens(cfg)
+    fields = _batch_np(jcfg)
 
-    want, jaux = jax.jit(lambda p, t: j_forward(p, jcfg, JBatch(tokens=t)))(
-        jp, toks)
-    got, aux = forward(tp, cfg, Batch(tokens=torch.from_numpy(toks)))
+    jb, tb = _batches(fields)
+    want, jaux = jax.jit(lambda p, b: j_forward(p, jcfg, b))(jp, jb)
+    got, aux = forward(tp, cfg, tb)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=0, atol=1e-6)
     if cfg.num_experts:
         assert float(aux) > 0.0
 
-    jl, jc = jax.jit(lambda p, t: j_prefill(p, jcfg, JBatch(tokens=t),
-                                            MAX_LEN))(jp, toks[:, :PROMPT])
-    tl, tc = prefill(tp, cfg, Batch(tokens=torch.from_numpy(toks[:, :PROMPT])),
-                     MAX_LEN)
+    jb, tb = _batches(_upto(fields, PROMPT))
+    jl, jc = jax.jit(lambda p, b: j_prefill(p, jcfg, b, MAX_LEN))(jp, jb)
+    tl, tc = prefill(tp, cfg, tb, MAX_LEN)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
 
     def check_cache(tc, jc):
         got, want = tree_paths(tc), jax.tree_util.tree_flatten_with_path(jc)[0]
         assert [p for p, _ in got] == [_key_path(p) for p, _ in want]
         for (path, t), (_, a) in zip(got, want):
+            assert t.dtype == torch.float32 or path[-1] == "pos", path
             if path[-1] == "pos":
                 np.testing.assert_array_equal(t.numpy(), np.asarray(a))
-            elif path[-1] == "wkv":
-                # a sum over the tokens so far, O(10): ATOL of its largest
+            elif path[-1] in ("wkv", "ssm"):
+                # a sum over the tokens so far: ATOL of its largest
                 np.testing.assert_allclose(
                     t.numpy(), np.asarray(a), rtol=0,
                     atol=ATOL * float(np.abs(np.asarray(a)).max()),
@@ -167,13 +196,28 @@ def test_forward_prefill_decode_match_reference(arch, ref_params):
                                            atol=ATOL, err_msg=str(path))
 
     check_cache(tc, jc)
-    jdec = jax.jit(lambda p, t, pos, c: j_decode(p, jcfg, t, pos, c))
+    if not cfg.is_decoder():
+        pos = np.full((B,), PROMPT, np.int32)
+        t = fields["embeds"][:, PROMPT:PROMPT + 1]
+        with pytest.raises(ValueError, match="no decode step"):
+            j_decode(jp, jcfg, None, pos, jc)
+        with pytest.raises(ValueError, match="no decode step"):
+            decode_step(tp, cfg, None, torch.from_numpy(pos), tc,
+                        embeds=torch.tensor(t))
+        return
+    toks = fields["tokens"]
+    mrope = fields.get("positions")
+    jdec = jax.jit(lambda p, t, pos, c, mp: j_decode(p, jcfg, t, pos, c,
+                                                     mrope_position=mp))
     for i in range(STEPS):
         t = toks[:, PROMPT + i:PROMPT + i + 1]
         pos = np.full((B,), PROMPT + i, np.int32)
-        jlog, jc = jdec(jp, t, pos, jc)
-        tlog, tc = decode_step(tp, cfg, torch.from_numpy(t),
-                               torch.from_numpy(pos), tc)
+        mp = None if mrope is None else mrope[:, :, PROMPT + i:PROMPT + i + 1]
+        jlog, jc = jdec(jp, t, pos, jc, mp)
+        tlog, tc = decode_step(tp, cfg, torch.tensor(t),
+                               torch.from_numpy(pos), tc,
+                               mrope_position=None if mp is None
+                               else torch.tensor(mp))
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0,
                                    atol=ATOL, err_msg=f"decode step {i}")
     check_cache(tc, jc)

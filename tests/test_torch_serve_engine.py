@@ -189,6 +189,26 @@ def test_insert_slot_cache_overwrites_a_recurrent_state():
         assert torch.equal(leaf[:, :2], torch.full_like(leaf[:, :2], 3))
 
 
+def test_insert_slot_cache_overwrites_a_mamba_state():
+    """A jamba cache's Mamba layer holds a conv window and an f32 SSM
+    state, no positions: inserting a request overwrites both leaves of its
+    row (and the attention layer's k / v / pos), so nothing of the slot's
+    last request is left."""
+    jcfg = registry.smoke_config("jamba-1.5-large-398b")
+    big = tree_map(lambda t: torch.full_like(t, 3),
+                   init_cache(jcfg, 3, MAX_LEN, torch.float32))
+    small = tree_map(lambda t: torch.full_like(t, 7),
+                     init_cache(jcfg, 1, MAX_LEN, torch.float32))
+    out = insert_slot_cache(big, small, 1)
+    mamba = out["units"][1]
+    assert sorted(mamba) == ["conv", "ssm"]
+    assert mamba["ssm"].dtype == torch.float32
+    for leaf in tree_leaves(out["units"]):
+        assert torch.equal(leaf[:, 1], torch.full_like(leaf[:, 1], 7))
+        assert torch.equal(leaf[:, 0], torch.full_like(leaf[:, 0], 3))
+        assert torch.equal(leaf[:, 2], torch.full_like(leaf[:, 2], 3))
+
+
 def test_decode_step_logits_optin(cfg, params):
     with_logits = make_decode_step(cfg)
     no_logits = make_decode_step(cfg, return_logits=False)
@@ -613,10 +633,14 @@ def test_serve_cli_needs_cuda_unless_told_cpu():
 # ----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-7b"])
 def test_rwkv_and_moe_engines_match_reference(arch):
-    """The smoke configs of RWKV-6 (a recurrent decode state) and the MoE
-    (dense path) behind both engines on one VirtualClock trace of two
+    """The smoke configs of RWKV-6 (a recurrent decode state), the MoE
+    (dense path), the jamba hybrid (attention and a Mamba conv / SSM
+    state, MoE) and qwen2-vl (M-RoPE: text prompts with (3, 1, S)
+    positions, each tick's position on all three streams) behind both
+    engines on one VirtualClock trace of two
     slots, each slot serving several requests in turn: every request
     equal to its oracles (a finished request's state leaks into no later
     one) and the reference's service tick for tick, token for token.  The
@@ -650,7 +674,8 @@ def test_rwkv_and_moe_engines_match_reference(arch):
     assert_same_service(port_rep, ref_rep, steps, {0: jp}, jtrace)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "mixtral-8x7b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-7b"])
 def test_serve_cli_serves_recurrent_and_moe_archs(arch, capsys):
     import json
 

@@ -7,7 +7,11 @@ and the same numpy tokens go to both.  Four dense smoke configs: olmo-1b
 phi4-mini (GQA, SwiGLU) and gemma3-4b (GeGLU, scaled embeddings, local /
 global attention, a tail); and mixtral-8x7b and qwen3-moe-30b-a3b, whose
 MoE router's load-balance loss is part of the loss and its gradients,
-and rwkv6-7b.  The port's MoE is the dense path, so the reference runs
+and rwkv6-7b; jamba-1.5-large-398b (the attention + Mamba / MoE hybrid),
+hubert-xlarge (the audio frontend: no tokens, the loss on the masked
+frames of the reference's ``hubert_batch``) and qwen2-vl-7b (the vision
+frontend: patch embeddings and M-RoPE positions of the reference's
+``vlm_batch``, whose ``loss_mask`` masks the image slots).  The port's MoE is the dense path, so the reference runs
 its MoE configs with ``moe_impl="dense"`` (on its host mesh ``"auto"``
 would take the expert-parallel path, whose capacity can drop tokens).
 
@@ -28,8 +32,9 @@ XLA's):
     so such a comparison would measure rounding, not the step.  The
     default eps is held on identical gradients in test_torch_optim.py.
 
-The three non-dense archs are held to tolerances of their own
-(``NON_DENSE_TOL``).  RWKV-6's float32 gradients are ill-conditioned in
+The non-dense archs (with jamba) are held to tolerances of their own
+(``NON_DENSE_TOL``); hubert and qwen2-vl, dense models behind their
+frontends, to the dense ones.  RWKV-6's float32 gradients are ill-conditioned in
 both packages (the chunked WKV's exponentials of cumulative decays, the
 per-head group norm's division by a small spread): the two packages'
 gradients sit further apart than the dense archs' 1e-5, and each as far
@@ -50,6 +55,8 @@ from repro.launch.mesh import make_host_mesh
 from repro.launch.shardings import ShardingPolicy
 from repro.launch import steps as jsteps
 from repro.models import init_model as j_init
+from repro.models.frontends import hubert_batch as j_hubert_batch
+from repro.models.frontends import vlm_batch as j_vlm_batch
 from repro.models.transformer import Batch as JBatch
 from repro.optim import adamw as j_adamw
 from repro.optim import linear_warmup_cosine as j_lwc
@@ -67,7 +74,9 @@ from repro_torch.tree import tree_paths
 
 torch.set_num_threads(2)
 DENSE = ("olmo-1b", "qwen1.5-4b", "phi4-mini-3.8b", "gemma3-4b")
-NON_DENSE = ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b")
+NON_DENSE = ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
+             "jamba-1.5-large-398b")
+FRONTENDS = ("hubert-xlarge", "qwen2-vl-7b")
 B, S = 8, 16
 LOSS_RTOL = 1e-6
 GRAD_RTOL = {"standard": 1e-5, "bflc": 3e-4}
@@ -121,6 +130,23 @@ def _batches(vocab, rows, seed, mask=None):
     return jb, tb
 
 
+def _arch_batches(jcfg, rows, seed, mask=None):
+    """(reference Batch, port Batch) for an arch: numpy tokens for a text
+    model (``_batches``), else the reference's own frontend batch (a 2 x 2
+    patch grid amid text for the vision model) carried across as numpy."""
+    if not jcfg.frontend:
+        return _batches(jcfg.vocab_size, rows, seed, mask)
+    key = jax.random.PRNGKey(seed)
+    if jcfg.frontend == "audio":
+        jb = j_hubert_batch(key, jcfg, rows, S)
+    else:
+        jb = j_vlm_batch(key, jcfg, rows, S, image_patches=4, grid=(2, 2))
+    if mask is not None:
+        jb = jb._replace(loss_mask=jb.loss_mask * mask)
+    return jb, Batch(**{k: None if v is None else torch.from_numpy(np.array(v))
+                        for k, v in jb._asdict().items()})
+
+
 def _key_paths(tree):
     return {tuple(getattr(k, "key", getattr(k, "idx", None)) for k in p): l
             for p, l in jax.tree_util.tree_flatten_with_path(tree)[0]}
@@ -156,7 +182,8 @@ def test_token_ce_matches_reference():
 
 
 @pytest.mark.parametrize("committee", [4, 3])
-@pytest.mark.parametrize("arch", ("olmo-1b", "gemma3-4b") + NON_DENSE)
+@pytest.mark.parametrize("arch", ("olmo-1b", "gemma3-4b") + NON_DENSE
+                         + FRONTENDS)
 def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
                                           ref_params):
     """standard_loss and bflc_loss (Q even and odd) and their gradients."""
@@ -166,8 +193,8 @@ def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
     p_np = ref_params(arch)
     mask = np.ones((B, S), np.float32)
     mask[1, 5:] = 0.0
-    jb, tb = _batches(cfg.vocab_size, B, 1, mask)
-    jv, tv = _batches(cfg.vocab_size, 4, 2)
+    jb, tb = _arch_batches(jcfg, B, 1, mask)
+    jv, tv = _arch_batches(jcfg, 4, 2)
     jfns = {
         "standard": lambda p: jsteps.standard_loss(p, jcfg, jb, ctx),
         "bflc": lambda p: jsteps.bflc_loss(p, jcfg, jb, jv, ctx,
@@ -281,7 +308,7 @@ def _opts(lr=1e-2):
 
 
 @pytest.mark.parametrize("mode", ["standard", "bflc"])
-@pytest.mark.parametrize("arch", DENSE + NON_DENSE)
+@pytest.mark.parametrize("arch", DENSE + NON_DENSE + FRONTENDS)
 def test_train_step_matches_reference(arch, mode, mesh_pol, ref_params):
     tol = (NON_DENSE_TOL if arch in NON_DENSE else
            dict(loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
@@ -298,8 +325,8 @@ def test_train_step_matches_reference(arch, mode, mesh_pol, ref_params):
     n = lambda t: jax.tree.map(np.asarray, t)
     ts = train_state_from_numpy(n(js.params), n(js.opt_state), js.step)
     for i in range(3):
-        jb, tb = _batches(cfg.vocab_size, B, 10 + i)
-        jv, tv = _batches(cfg.vocab_size, 4, 20 + i)
+        jb, tb = _arch_batches(jcfg, B, 10 + i)
+        jv, tv = _arch_batches(jcfg, 4, 20 + i)
         js, jm = jstep(js, jb, jv if mode == "bflc" else None)
         ts, tm = step(ts, tb, tv if mode == "bflc" else None)
         for key in ("loss", "total_loss"):
@@ -369,6 +396,30 @@ def test_microbatches_match_reference(mode, mesh_pol, ref_params):
         np.testing.assert_allclose(float(ce1), float(ce2), rtol=LOSS_RTOL)
         _assert_leafwise(g2, to_numpy_tree(g1), GRAD_RTOL[mode],
                          "mb=2 vs mb=1")
+
+
+def test_microbatches_split_mrope_positions(mesh_pol, ref_params):
+    """qwen2-vl's (3, B, S) M-RoPE positions split on their batch axis:
+    num_microbatches=2 matches the reference's scan (losses and the
+    first moment of one AdamW step)."""
+    mesh, pol = mesh_pol
+    arch = "qwen2-vl-7b"
+    jcfg, cfg = jreg.smoke_config(arch), registry.smoke_config(arch)
+    jopt, _ = _opts()
+    p_np = ref_params(arch)
+    jb, tb = _arch_batches(jcfg, B, 3)
+    assert tuple(tb.positions.shape) == (3, B, S)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jopt, mesh, pol,
+                                           mode="standard",
+                                           num_microbatches=2))
+    p = jax.tree.map(jnp.asarray, p_np)
+    js, jm = jstep(jsteps.TrainState(p, jopt.init(p), jnp.ones((), jnp.int32)),
+                   jb)
+    g2, _, ce2 = steps.make_grad_fn(cfg, mode="standard", num_microbatches=2)(
+        from_numpy_tree(p_np), tb)
+    np.testing.assert_allclose(float(ce2), float(jm["loss"]), rtol=LOSS_RTOL)
+    m = jax.tree.map(lambda x: x / 0.1, js.opt_state["m"])
+    _assert_leafwise(g2, m, GRAD_RTOL["standard"], "microbatched grads")
 
 
 @pytest.mark.parametrize("mode", ["standard", "bflc"])
