@@ -2,7 +2,7 @@
 """This tree's local-trainer products and train stage beside another
 checkout's, on one GPU.
 
-    python3 chip_compare.py --against DIR [--turns 2]
+    python3 chip_compare.py --against DIR [--turns 2] [--ticks ARCH,...]
 
 Runs the checkouts in turns (DIR, this tree, this tree, DIR for --turns 2),
 one process each, with the checkout's ``src`` on PYTHONPATH and its own
@@ -13,8 +13,12 @@ makes each bias gradient a product of its own with an expanded ones row;
 (2) runs the flat int8 path (the checkout's ``path_int8``, 4 more rounds
 and one profiled round) and reports its train-stage seconds and the
 device's busy time in the profiled one.  Every turn's products must be the
-same bits (by value) as the first's.  Every line is one JSON object; the
-last two are nvidia-smi's name and power limit and {"ok": true}.
+same bits (by value) as the first's.  With ``--ticks`` each turn instead
+builds each named registry arch at full width (f32, seed 0, on the card)
+and runs the checkout's ``decode_tick`` on it: a decode step's host ms,
+event ms, device busy ms and kernels at 1 and 4 rows.  Every line is one
+JSON object; the last two are nvidia-smi's name and power limit and
+{"ok": true}.
 """
 from __future__ import annotations
 
@@ -59,12 +63,15 @@ def gemm_rows(client_gemm_kernel) -> list:
     return rows
 
 
-def turn(root: str) -> None:
+def turn(root: str, ticks: str) -> None:
     """One turn on the checkout at ``root``, in this process."""
     spec = importlib.util.spec_from_file_location(
         "checkout_smoke", os.path.join(root, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    if ticks:
+        tick_turn(smoke, ticks.split(","))
+        return
     from repro_torch.data.synthetic import make_femnist_like
     from repro_torch.kernels.client_gemm import client_gemm_kernel
 
@@ -75,19 +82,42 @@ def turn(root: str) -> None:
     smoke.phase_profile("int8", rt)
 
 
-def compare(against: str, turns: int) -> None:
+def tick_turn(smoke, archs) -> None:
+    """The checkout's ``decode_tick`` on each arch at full width."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import init_model
+
+    for arch in archs:
+        cfg = registry.get_config(arch)
+        params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        smoke.decode_tick(cfg, params, path=arch)
+        del params
+        torch.cuda.empty_cache()
+
+
+def compare(against: str, turns: int, ticks: str) -> None:
     trees = [os.path.abspath(against), ROOT]
     order = [trees[(i + i // 2) % 2] for i in range(2 * turns)]
     first = None
     for n, root in enumerate(order):
         env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn", root], capture_output=True, text=True,
-                              env=env, timeout=1200)
+                               "--turn", root, "--ticks", ticks],
+                              capture_output=True, text=True, env=env,
+                              timeout=1200)
         cs.check(proc.returncode == 0, f"turn {n} ({root}) failed:\n"
                                        f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
         lines = [json.loads(x) for x in proc.stdout.splitlines()
                  if x.startswith("{")]
+        tree = os.path.relpath(root, ROOT)
+        if ticks:
+            for x in lines:
+                if x.get("phase") == "decode_tick":
+                    x.pop("top", None)
+                    cs.emit(**dict(x, turn=n, tree=tree))
+            continue
         gemm = [x for x in lines if x.get("phase") == "gemm"]
         digests = [x["digest"] for x in gemm]
         first = first or digests
@@ -95,7 +125,6 @@ def compare(against: str, turns: int) -> None:
         train = [x["timings"]["train"] for x in lines if x.get("phase") == "round"]
         profile = next(x for x in lines if x.get("phase") == "profile")
         stage = profile["stages"]["train"]
-        tree = os.path.relpath(root, ROOT)
         for x in gemm:
             cs.emit(phase="gemm", turn=n, tree=tree, form=x["form"],
                     calls_ms=x["calls_ms"], ms=sum(x["calls_ms"]))
@@ -120,14 +149,16 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against")
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--ticks", default="",
+                    help="comma-separated registry archs: compare decode ticks")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.turn:
-        turn(args.turn)
+        turn(args.turn, args.ticks)
         return 0
     if not args.against:
         ap.error("--against DIR is required")
-    compare(args.against, args.turns)
+    compare(args.against, args.turns, args.ticks)
     print(cs.nvidia_smi(), flush=True)
     cs.emit(ok=True)
     return 0

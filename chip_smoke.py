@@ -144,6 +144,21 @@ Phases, one JSON line each:
                     clients and the 54-client program's rows bit for
                     bit; ``world2_vs_world1``: the same logs, uploaders,
                     blobs and committed model as world 1 in every round
+           moe_ep_world2  one qwen3-moe MoE layer at full width (d 2048,
+                    128 experts top 8, expert d_ff 768) on (4, 64, 2048)
+                    f32 tokens through the expert-parallel path on two
+                    gloo ranks sharing the card (make_host_mesh(1, 2), 64
+                    experts a rank, both all-to-alls through pinned host
+                    memory): at capacity factor E no assignment dropped
+                    and the gathered output within 1e-5 of its largest
+                    entry of world 1's EP and of moe_dense; at 1.25 each
+                    rank's drops; ms a call of both
+           lm_mesh_world1  run_lm at the CLI's defaults on an NCCL world
+                    of one with --use-all-devices (a (1, 1) DeviceMesh,
+                    DTensor params and moments by param_pspecs) and
+                    without: 20 standard and 10 bflc steps each, every
+                    loss and every param / moment leaf bit for bit, s/step
+                    of both
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -183,16 +198,27 @@ Phases, one JSON line each:
                     and bytes bounds
            serve_rwkv6_7b, serve_qwen3_moe  rwkv6-7b at full width and
                     depth (7,577,018,368 f32 params) and qwen3-moe-30b-a3b
-                    at full width, 16 of its 48 units (128 experts top 8,
-                    the dense MoE path: 10,592,258,048 params, 42.4 GB),
-                    from a seeded generator: serve_olmo_1b's trace
-                    continuous and static, every request equal to its
-                    same-row and batch-1 oracles (slots reused, so no
-                    recurrent state leaks), no implicit sync, a
-                    ``decode_tick`` against the bytes bound of reading
-                    every parameter, and one prompt's prefill logits on a
-                    2-unit cut of the same weights against a float64 host
-                    prefill; no hot swap, no kernel launches
+                    at full width, 16 of its 48 units (128 experts top 8:
+                    10,592,258,048 params, 42.4 GB), from a seeded
+                    generator: serve_olmo_1b's trace continuous and
+                    static, every request equal to its same-row and
+                    batch-1 oracles (slots reused, so no recurrent state
+                    leaks), no implicit sync, a ``decode_tick`` against
+                    the bytes bound of reading every parameter, and one
+                    prompt's prefill logits on a 2-unit cut of the same
+                    weights against a float64 host prefill; no hot swap,
+                    no kernel launches.  An MoE model serves at its
+                    default ``moe_impl="auto"``: the expert-parallel path
+                    on the engine's 1 x 1 mesh, capacity dispatch with
+                    drops (``serve`` lines report them a tick), where one
+                    row's routing can drop another row's assignment; its
+                    requests are held to the replay oracle (the engine's
+                    prefill and decode steps called again on the ticks it
+                    recorded, ``replay_ticks``), the sync-free run to its
+                    own replay, the float64 cut prefill on the capacity
+                    path with the same drops on both sides; then a dense
+                    twin (``moe_impl="dense"``, continuous) keeps the
+                    same-row and batch-1 oracles
            serve_qwen2_vl, serve_jamba_cut  the same for qwen2-vl-7b at
                     full width and depth (28 layers, 28 / 4 heads, M-RoPE
                     sections (16, 24, 24): 7,615,616,512 params, 30.46 GB;
@@ -205,7 +231,8 @@ Phases, one JSON line each:
                     11,912,897,056 params, 47.65 GB; one whole unit is
                     about 181 GB), whose float64 check is its Mamba mixer
                     alone: a 64-token prefill and 8 steps, outputs and
-                    conv / SSM states (``mamba_reference``)
+                    conv / SSM states (``mamba_reference``); jamba's MoE
+                    layer serves as qwen3-moe's does
            flash_check  the port's flash attention (K and V expanded to
                     the query heads) against dense attention in float64 on
                     the card, output and the gradients of q, k and v, at
@@ -258,6 +285,7 @@ exits non-zero and prints no result; without CUDA it exits 2.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1992,64 +2020,55 @@ def path_sharded_world1(ds, init) -> dict:
     both, launch counts equal to the twin's.  The group is destroyed after.
     Returns path -> counts (twins under ``<path>_twin``) and the world-1
     committee path's logs and params for (b)."""
-    import tempfile
-
-    import torch.distributed as dist
-
     from repro_torch.launch.mesh import make_round_mesh
     from repro_torch.tree import tree_leaves
 
     out, rts = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", store=dist.FileStore(
-            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
-        try:
-            mesh = make_round_mesh(1, device="cuda:0")
-            emit(phase="mesh", path="sharded_world1", mesh=repr(mesh))
-            for path, validator in SHARDED_W1.items():
-                committees = {}
-                for name, m, v in ((f"{path}_twin", None,
-                                    validator and validator.replace(
-                                        "_sharded", "")),
-                                   (path, mesh, validator)):
-                    def drive(name=name, m=m, v=v):
-                        rt = build(ds, INT8_CFG,
-                                   stages={"validator": v} if v else None,
-                                   mesh=m, initial_params=init)
-                        committees[name] = []
-                        for _ in range(ROUNDS_SHARDED):
-                            run_rounds(name, rt, 1)
-                            committees[name].append(list(rt.committee))
-                        verify(name, rt, ROUNDS_SHARDED)
-                        readback(name, rt, ROUNDS_SHARDED)
-                        return rt
+    with nccl_world1():
+        mesh = make_round_mesh(1, device="cuda:0")
+        emit(phase="mesh", path="sharded_world1", mesh=repr(mesh))
+        for path, validator in SHARDED_W1.items():
+            committees = {}
+            for name, m, v in ((f"{path}_twin", None,
+                                validator and validator.replace(
+                                    "_sharded", "")),
+                               (path, mesh, validator)):
+                def drive(name=name, m=m, v=v):
+                    rt = build(ds, INT8_CFG,
+                               stages={"validator": v} if v else None,
+                               mesh=m, initial_params=init)
+                    committees[name] = []
+                    for _ in range(ROUNDS_SHARDED):
+                        run_rounds(name, rt, 1)
+                        committees[name].append(list(rt.committee))
+                    verify(name, rt, ROUNDS_SHARDED)
+                    readback(name, rt, ROUNDS_SHARDED)
+                    return rt
 
-                    out[name], rts[name] = counted(
-                        name, drive, {"quantize_stack": ROUNDS_SHARDED,
-                                      "fused_agg": ROUNDS_SHARDED})
-                twin, sh = rts[f"{path}_twin"], rts[path]
-                diff = chains_equal(twin, sh)
-                params_equal = all(same_bits(x, y) for x, y in zip(
-                    tree_leaves(twin.global_params()),
-                    tree_leaves(sh.global_params())))
-                emit(phase="sharded_twin", path=path, world=1, backend="nccl",
-                     logs_equal=twin.logs == sh.logs,
-                     committees_equal=(committees[f"{path}_twin"]
-                                       == committees[path]),
-                     chain_diff=diff, params_equal=params_equal,
-                     launches={n: {k: v for k, v in out[n].items() if v}
-                               for n in (f"{path}_twin", path)})
-                check(twin.logs == sh.logs, f"{path}: RoundLogs differ")
-                check(committees[f"{path}_twin"] == committees[path],
-                      f"{path}: committees differ")
-                check(diff == {"blocks": 0, "leaves": 0, "max_abs_err": 0.0},
-                      f"{path}: chain differs from the flat twin's: {diff}")
-                check(params_equal, f"{path}: params differ from the twin's")
-                check(out[f"{path}_twin"] == out[path],
-                      f"{path}: launches {out[path]} differ from the twin's "
-                      f"{out[f'{path}_twin']}")
-        finally:
-            dist.destroy_process_group()
+                out[name], rts[name] = counted(
+                    name, drive, {"quantize_stack": ROUNDS_SHARDED,
+                                  "fused_agg": ROUNDS_SHARDED})
+            twin, sh = rts[f"{path}_twin"], rts[path]
+            diff = chains_equal(twin, sh)
+            params_equal = all(same_bits(x, y) for x, y in zip(
+                tree_leaves(twin.global_params()),
+                tree_leaves(sh.global_params())))
+            emit(phase="sharded_twin", path=path, world=1, backend="nccl",
+                 logs_equal=twin.logs == sh.logs,
+                 committees_equal=(committees[f"{path}_twin"]
+                                   == committees[path]),
+                 chain_diff=diff, params_equal=params_equal,
+                 launches={n: {k: v for k, v in out[n].items() if v}
+                           for n in (f"{path}_twin", path)})
+            check(twin.logs == sh.logs, f"{path}: RoundLogs differ")
+            check(committees[f"{path}_twin"] == committees[path],
+                  f"{path}: committees differ")
+            check(diff == {"blocks": 0, "leaves": 0, "max_abs_err": 0.0},
+                  f"{path}: chain differs from the flat twin's: {diff}")
+            check(params_equal, f"{path}: params differ from the twin's")
+            check(out[f"{path}_twin"] == out[path],
+                  f"{path}: launches {out[path]} differ from the twin's "
+                  f"{out[f'{path}_twin']}")
     w1 = rts["sharded_int8_committee"]
     return out, {"logs": w1.logs, **round_products(w1)}
 
@@ -2479,6 +2498,240 @@ def path_sharded_world2(init, world1) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the LM mesh: the expert-parallel MoE on two ranks, run_lm on a (1, 1)
+# DeviceMesh
+# ----------------------------------------------------------------------
+EP_ARCH = "qwen3-moe-30b-a3b"
+EP_SHAPE = (4, 64)           # (B, S) tokens through one MoE layer
+EP_REPS = 3                  # timed calls a capacity factor
+EP_RTOL = 1e-5               # of the largest output entry
+LM_MESH_STEPS = {"standard": 20, "bflc": 10}
+LM_MESH_WARM = 5             # steps before the s/step window
+
+
+def ep_layer(device):
+    """One qwen3-moe MoE layer at full width (d 2048, 128 experts, top 8,
+    expert d_ff 768: 604M f32 params) and (4, 64, 2048) f32 tokens, both
+    from seed 5 on ``device`` (every rank draws the same)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.moe import init_moe
+
+    cfg = registry.get_config(EP_ARCH)
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = init_moe(gen, cfg, torch.float32)
+    x = torch.randn(EP_SHAPE + (cfg.d_model,), generator=gen, device=device)
+    return cfg, params, x
+
+
+def ep_call(params, x, cfg, ctx):
+    """The expert-parallel layer (no grad, in the mesh's DTensor scope as
+    the model runs it): (out, drops on this rank, ms a call over EP_REPS
+    CUDA-event-timed calls after the checked one)."""
+    import torch
+
+    from repro_torch.models.moe import count_drops, moe_expert_parallel
+    from repro_torch.models.shardctx import mesh_scope
+
+    with torch.no_grad(), mesh_scope(ctx.mesh):
+        with count_drops() as drops:
+            y, _ = moe_expert_parallel(params, x, cfg, ctx)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(EP_REPS):
+            moe_expert_parallel(params, x, cfg, ctx)
+        end.record()
+        end.synchronize()
+    return y, int(sum(int(d) for d in drops)), start.elapsed_time(end) / EP_REPS
+
+
+def ep_rank() -> dict:
+    """A rank of moe_ep_world2: the layer on make_host_mesh(1, 2) (64
+    experts a rank, the sequence split over model) as the model runs it
+    on a DeviceMesh.  x and the parameters are DTensors (replicated, made
+    by ``from_local`` with no collective), redistributed to the layer's
+    layout, sent through both all-to-alls (gloo: staged through pinned
+    host memory), and the output is a DTensor whose local block is this
+    rank's sequence chunk.  At capacity factor E (C = A) and at the
+    config's 1.25: this rank's drops and ms a call; at E each rank also
+    holds its chunk against the same chunk of world 1's EP (the
+    LocalMesh) and of moe_dense on the same inputs, and rank 0 times
+    world 1 alone on the card."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import LocalMesh, make_host_mesh
+    from repro_torch.models.moe import (
+        MoEShardingCtx,
+        moe_dense,
+        moe_expert_parallel,
+    )
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    cfg, params, x = ep_layer(dev)
+    mesh = make_host_mesh(1, 2, device="cuda")
+    ctx = MoEShardingCtx(mesh=mesh, dp_axes=("data",), model_axis="model")
+    local = MoEShardingCtx(mesh=LocalMesh(), dp_axes=("data",),
+                           model_axis="model")
+    rep = (Replicate(),) * mesh.ndim
+    dparams = {k: DTensor.from_local(v, mesh, rep, run_check=False)
+               for k, v in params.items()}
+    dx = DTensor.from_local(x, mesh, rep, run_check=False)
+    rank, part = dist.get_rank(), mesh.get_coordinate()[1]
+    out = {"rank": rank, "backend": dist.get_backend()}
+    for name, cf in (("no_drop", float(cfg.num_experts)),
+                     ("default", cfg.moe_capacity_factor)):
+        c = cfg.replace(moe_capacity_factor=cf)
+        y, drops, ms = ep_call(dparams, dx, c, ctx)
+        res = {"capacity_factor": cf, "drops": drops, "ms": ms,
+               "placements": [str(q) for q in y.placements],
+               "local_shape": list(y.to_local().shape),
+               "finite": bool(torch.isfinite(y.to_local()).all())}
+        if name == "no_drop":
+            y = y.to_local()
+            with torch.no_grad():
+                y1, _ = moe_expert_parallel(params, x, c, local)
+                yd, _ = moe_dense(params, x, c)
+            scale = float(y1.abs().max())
+            y1, yd = (t.chunk(2, dim=1)[part] for t in (y1, yd))
+            res.update(max_abs=scale,
+                       err_world1=float((y - y1).abs().max()) / scale,
+                       err_dense=float((y - yd).abs().max()) / scale)
+            dist.barrier()
+            if rank == 0:
+                _, drops1, ms1 = ep_call(params, x, c, local)
+                res.update(world1_drops=drops1, world1_ms=ms1)
+            dist.barrier()
+        out[name] = res
+    return out
+
+
+def path_moe_ep_world2() -> None:
+    """Two gloo ranks on the one card (``spawn_world``), each running
+    ``ep_rank``: the output a DTensor split over the sequence, at capacity
+    factor E no assignment dropped on either rank and each rank's chunk
+    within EP_RTOL of the largest entry of world 1's EP and of moe_dense;
+    at 1.25 each rank's drops reported.  No kernel of the port's runs here
+    (the layer is PyTorch's matmuls)."""
+    from repro_torch.hostdevices import spawn_world
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(EP_ARCH)
+    ranks = spawn_world(2, ep_rank, backend="gloo", timeout=600.0)
+    chunk = [EP_SHAPE[0], EP_SHAPE[1] // 2, cfg.d_model]
+    for r in ranks:
+        emit(phase="moe_ep", path="moe_ep_world2", world=2, mesh=[1, 2],
+             arch=EP_ARCH, tokens=list(EP_SHAPE), d_model=cfg.d_model,
+             experts=cfg.num_experts, experts_per_token=cfg.num_experts_per_tok,
+             expert_d_ff=cfg.resolved_moe_d_ff, **r)
+        nd = r["no_drop"]
+        check(nd["drops"] == 0 and nd["finite"] and r["default"]["finite"]
+              and nd["local_shape"] == chunk
+              and r["default"]["local_shape"] == chunk,
+              f"moe_ep_world2 rank {r['rank']}: {nd}")
+        check(nd["err_world1"] <= EP_RTOL and nd["err_dense"] <= EP_RTOL,
+              f"moe_ep_world2 rank {r['rank']}: off world 1 by "
+              f"{nd['err_world1']} and off moe_dense by {nd['err_dense']} of "
+              f"the largest entry")
+    check(ranks[0]["no_drop"]["world1_drops"] == 0,
+          "moe_ep_world2: world 1 dropped")
+
+
+class StepClock:
+    """``run_lm``'s ``on_step``: the losses (read at the end), the last
+    state, and s/step over the steps after LM_MESH_WARM (the device
+    synchronized at both edges)."""
+
+    def __init__(self, steps: int):
+        self.steps, self.losses, self.state, self.t = steps, [], None, [0, 0]
+
+    def __call__(self, step, state, metrics):
+        import torch
+
+        self.losses.append((metrics["loss"], metrics["total_loss"]))
+        if step + 1 in (LM_MESH_WARM, self.steps):
+            torch.cuda.synchronize()
+            self.t[step + 1 == self.steps] = time.perf_counter()
+        self.state = state
+
+    def s_per_step(self) -> float:
+        return (self.t[1] - self.t[0]) / (self.steps - LM_MESH_WARM)
+
+
+@contextlib.contextmanager
+def nccl_world1():
+    """An NCCL process group of one rank in this process (a FileStore in a
+    temporary directory), destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def path_lm_mesh_world1() -> None:
+    """``run_lm`` (repro-100m at the CLI's defaults) on an NCCL world of
+    one, with ``--use-all-devices`` (a (1, 1) DeviceMesh, DTensor params
+    and moments laid out by ``param_pspecs``) and without (the LocalMesh,
+    plain tensors): LM_MESH_STEPS standard and bflc steps each from the
+    seeded init; every step's losses and the final params and moments bit
+    for bit equal; s/step of both.  No kernel of the port's runs."""
+    from repro_torch.launch.train import run_lm
+    from repro_torch.models.shardctx import whole
+    from repro_torch.tree import tree_leaves
+
+    with nccl_world1():
+        for mode, steps in LM_MESH_STEPS.items():
+            runs = {}
+            for name, flags in (("mesh", ("--use-all-devices",)),
+                                ("meshless", ())):
+                clock = StepClock(steps)
+                run_lm(train_args("--steps", str(steps), "--mode", mode,
+                                  "--log-every", str(steps), *flags),
+                       on_step=clock)
+                st = clock.state
+                runs[name] = dict(
+                    losses=[(float(a), float(b)) for a, b in clock.losses],
+                    leaves=[whole(t) for t in tree_leaves(
+                        (st.params, st.opt_state))],
+                    dtensor=type(st.params["embed"]).__name__,
+                    s_per_step=clock.s_per_step())
+                del clock, st
+            a, b = runs["mesh"], runs["meshless"]
+            equal = sum(same_bits(x, y) for x, y in zip(a["leaves"],
+                                                        b["leaves"]))
+            emit(phase="lm_mesh", path="lm_mesh_world1", mode=mode,
+                 steps=steps, mesh=[1, 1], backend="nccl",
+                 leaf_types=[a["dtensor"], b["dtensor"]],
+                 losses_equal=a["losses"] == b["losses"],
+                 leaves_equal=equal, leaves=len(a["leaves"]),
+                 first_loss=a["losses"][0][0], last_loss=a["losses"][-1][0],
+                 s_per_step_mesh=a["s_per_step"],
+                 s_per_step_meshless=b["s_per_step"])
+            check(a["dtensor"] == "DTensor" and b["dtensor"] == "Tensor",
+                  f"lm_mesh_world1: leaf types {a['dtensor']}, {b['dtensor']}")
+            check(a["losses"] == b["losses"],
+                  f"lm_mesh_world1 {mode}: losses differ")
+            check(equal == len(a["leaves"]),
+                  f"lm_mesh_world1 {mode}: {len(a['leaves']) - equal} leaves "
+                  f"differ from the meshless run's")
+            del runs
+            gc.collect()
+
+
 def path_baselines(ds) -> None:
     """The committee-free baselines at full width through
     build_runtime(..., baseline=True): Basic FL (fedavg) and CwMed, 2
@@ -2647,15 +2900,17 @@ def full_width_reference(cfg, params, batch,
     import torch
 
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.moe import count_drops
 
     t0 = time.perf_counter()
     S = int(batch.positions.shape[-1])
-    prefill = make_prefill_step(cfg, max(SERVE_MAX_LEN, S))
-    outs = []
+    prefill = make_prefill_step(cfg, max_len=max(SERVE_MAX_LEN, S))
+    outs, drops = [], []
     for tree, b in ((params, batch),
                     (host_f64(params), host_f64(batch))):
-        with torch.no_grad():
+        with torch.no_grad(), count_drops() as seen:
             outs.append(prefill(tree, b)[0][0, -1].cpu())
+        drops.append([int(d) for d in seen])
         del tree
     got, want = outs[0].double(), outs[1]
     err, scale = float((got - want).abs().max()), float(want.abs().max())
@@ -2667,10 +2922,13 @@ def full_width_reference(cfg, params, batch,
          image_patches=patches, units=cfg.num_units,
          max_abs_err=err, max_abs_logit=scale, rtol=SERVE_F64_RTOL,
          top1=top1, top2_margin=float(top2[0] - top2[1]),
-         seconds=time.perf_counter() - t0)
+         moe_impl=cfg.moe_impl if cfg.num_experts else None,
+         drops_by_layer=drops[0], seconds=time.perf_counter() - t0)
     check(err <= SERVE_F64_RTOL * scale and top1[0] == top1[1],
           f"{path}: prefill logits off the float64 CPU prefill by "
           f"{err} (max |logit| {scale}), argmax {top1}")
+    check(drops[0] == drops[1], f"{path}: capacity drops {drops[0]} on the "
+                                f"card, {drops[1]} in float64")
 
 
 def mamba_reference(cfg, params, path: str) -> None:
@@ -2767,29 +3025,47 @@ def served_without_syncs(engine, trace, timed,
     ``torch.cuda.set_sync_debug_mode("warn")``: the engine's loop makes no
     implicit host-device sync (the token vectors come back through pinned
     copies whose events it waits on, which is explicit), and each request
-    decodes the same tokens as in the timed run."""
+    decodes the same tokens as in the timed run.  Under capacity dispatch
+    a request's tokens depend on its tick batches, which the clock
+    changes: there the run is held to its own replay instead."""
     import warnings
 
     import torch
 
     from repro_torch.serve import VirtualClock
+    from repro_torch.serve.engine import replay_ticks
 
+    capacity = capacity_dispatch(engine.cfg)
+    record = [] if capacity else None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            rep = engine.run(trace, policy="continuous", clock=VirtualClock())
+            rep = engine.run(trace, policy="continuous", clock=VirtualClock(),
+                             record=record)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
-    same = sum(a.tokens == b.tokens for a, b in zip(rep.results, timed.results))
+    if capacity:
+        timed = replay_ticks(engine, trace, record)
+        same = sum(a.tokens == timed[a.rid] for a in rep.results)
+    else:
+        same = sum(a.tokens == b.tokens
+                   for a, b in zip(rep.results, timed.results))
     emit(phase="serve_syncs", path=path, implicit_syncs=len(sites),
          sites=sorted(set(sites)), ticks=rep.ticks,
          requests_equal_to_timed_run=same)
     check(not sites, f"{path}: implicit syncs in the engine at {sites}")
     check(same == len(trace), f"{path}: a request decoded other tokens on a "
-                              f"VirtualClock than on the WallClock")
+                              f"VirtualClock than on the WallClock (or, "
+                              f"under capacity dispatch, than its replay)")
+
+
+def capacity_dispatch(cfg) -> bool:
+    """The engine's MoE takes the expert-parallel path (capacity dispatch
+    with drops): an MoE model at moe_impl "auto" or "expert_parallel"."""
+    return bool(cfg.num_experts) and cfg.moe_impl != "dense"
 
 
 def decode_tick(cfg, params, path: str = "serve_olmo_1b") -> None:
@@ -2797,8 +3073,9 @@ def decode_tick(cfg, params, path: str = "serve_olmo_1b") -> None:
     issue it, its CUDA-event time, and under torch.profiler the device's
     busy time in it (the union of its kernels' intervals) and its kernels
     by time.  Busy well under the event time means the host paces it.
-    ``bytes_bound_ms``: every parameter read once (a dense MoE runs every
-    expert on every row) at the card's memory rate."""
+    ``bytes_bound_ms``: every parameter read once (the expert-parallel MoE
+    runs every expert on its capacity rows, the dense one on every row)
+    at the card's memory rate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3139,14 +3416,18 @@ MAMBA_PROMPT, MAMBA_STEPS = 64, 8          # the Mamba mixer's f64 check
 
 
 def path_serve_arch(path: str) -> dict:
-    """A recurrent (RWKV-6), dense-path MoE, M-RoPE (qwen2-vl) or hybrid
-    (jamba) model at full width behind the continuous-batching engine,
-    random f32 weights from a seed on the card: the reference CLI's
-    16-request trace served continuous and static on a WallClock, every
-    request held to its same-row and its batch-1 oracle (slots are reused,
-    so a finished request's recurrent state must not reach the next one),
-    no implicit sync in the engine's loop, one decode tick's times against
-    the bytes bound of reading every parameter.  Against float64 on the
+    """A recurrent (RWKV-6), MoE, M-RoPE (qwen2-vl) or hybrid (jamba)
+    model at full width behind the continuous-batching engine, random f32
+    weights from a seed on the card: the reference CLI's 16-request trace
+    served continuous and static on a WallClock, every request held to its
+    same-row and its batch-1 oracle (slots are reused, so a finished
+    request's recurrent state must not reach the next one), no implicit
+    sync in the engine's loop, one decode tick's times against the bytes
+    bound of reading every parameter.  An MoE model serves on the
+    expert-parallel path (``moe_impl="auto"`` on the engine's 1 x 1 mesh),
+    whose capacity dispatch couples the rows of a tick: its requests are
+    held to the replay oracle and its drops a tick reported, and a dense
+    twin (``dense_twin``) keeps the same-row and batch-1 oracles.  Against float64 on the
     host: the prefill logits of one prompt through the first
     SERVE_F64_UNITS units of the same weights (the host cannot hold the
     whole tree in float64); for qwen2-vl also a vision prefill (VISION_SEQ
@@ -3160,7 +3441,7 @@ def path_serve_arch(path: str) -> dict:
     from repro_torch.device import synchronize
     from repro_torch.models import init_model, vlm_batch
     from repro_torch.serve import ServeEngine, WallClock, make_poisson_trace
-    from repro_torch.serve.engine import prompt_batch
+    from repro_torch.serve.engine import prompt_batch, replay_ticks
     from repro_torch.tree import tree_leaves, tree_map
 
     arch, kw = SERVE_ARCHS[path]
@@ -3207,23 +3488,33 @@ def path_serve_arch(path: str) -> dict:
         t0 = time.perf_counter()
         engine.warmup(SERVE_TRACE["prompt_lens"])
         emit(phase="serve_warmup", path=path, seconds=time.perf_counter() - t0)
+        capacity = capacity_dispatch(cfg)
         reports, oracle = {}, {}
         for policy in ("continuous", "static"):
-            rep = engine.run(trace, policy=policy, clock=WallClock())
+            record = [] if capacity else None
+            rep = engine.run(trace, policy=policy, clock=WallClock(),
+                             record=record)
             reports[policy] = rep
             slots = [res.slot for res in rep.results]
             emit(phase="serve", path=path, policy=policy, clock="wall",
                  slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                  most_requests_a_slot=max(slots.count(x) for x in set(slots)),
-                 **rep.metrics())
+                 **moe_fields(cfg, record), **rep.metrics())
+            replay = replay_ticks(engine, trace, record) if capacity else None
             for res, req in zip(rep.results, trace):
                 check(len(res.tokens) == req.max_new,
                       f"{path} {policy}: request {req.rid} truncated")
-                check(res.tokens == oracle_row(cfg, params, res, req, oracle),
+                want = (replay[res.rid] if capacity
+                        else oracle_row(cfg, params, res, req, oracle))
+                check(res.tokens == want,
                       f"{path} {policy}: request {req.rid} differs from its "
-                      f"oracle")
+                      f"{'replay' if capacity else 'same-row'} oracle")
         served_without_syncs(engine, trace, reports["continuous"], path=path)
-        batch_invariance(cfg, params, trace, reports, path=path)
+        if capacity:
+            del engine
+            dense_twin(cfg, params, trace, path)
+        else:
+            batch_invariance(cfg, params, trace, reports, path=path)
         decode_tick(cfg, params, path=path)
         emit(phase="serve_memory", path=path,
              peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -3233,6 +3524,51 @@ def path_serve_arch(path: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def moe_fields(cfg, record) -> dict:
+    """A ``serve`` line's MoE fields: the implementation and, from the
+    engine's record of a capacity-dispatch run, the assignments dropped
+    a decode tick (of ``assignments_a_tick`` = slots x k x MoE layers) and
+    in the prefills."""
+    if not cfg.num_experts:
+        return {}
+    out = {"moe_impl": cfg.moe_impl}
+    if record is None:
+        return out
+    ticks = [int(e[2]) for e in record if e[0] == "tick"]
+    layers = sum(s.mlp == "moe" for s in cfg.all_layers())
+    out.update(
+        assignments_a_tick=SERVE_SLOTS * cfg.num_experts_per_tok * layers,
+        drops_a_tick=sum(ticks) / max(len(ticks), 1),
+        max_drops_a_tick=max(ticks, default=0),
+        ticks_with_drops=sum(d > 0 for d in ticks),
+        prefill_drops=sum(int(e[3]) for e in record if e[0] == "admit"))
+    return out
+
+
+def dense_twin(cfg, params, trace, path: str) -> None:
+    """The same weights with ``moe_impl="dense"`` (no capacity, no drops)
+    behind a new engine, continuous on a WallClock: every request equal to
+    its same-row oracle and to its batch-1 oracle (``batch_invariance``),
+    the checks the capacity path's cross-row coupling takes away."""
+    from repro_torch.serve import ServeEngine, WallClock
+
+    dense = cfg.replace(moe_impl="dense")
+    engine = ServeEngine(dense, params, num_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, device="cuda")
+    engine.warmup(SERVE_TRACE["prompt_lens"])
+    rep = engine.run(trace, policy="continuous", clock=WallClock())
+    emit(phase="serve", path=path, policy="continuous", clock="wall",
+         slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, twin="dense",
+         **moe_fields(dense, None), **rep.metrics())
+    oracle = {}
+    for res, req in zip(rep.results, trace):
+        check(len(res.tokens) == req.max_new,
+              f"{path} dense: request {req.rid} truncated")
+        check(res.tokens == oracle_row(dense, params, res, req, oracle),
+              f"{path} dense: request {req.rid} differs from its oracle")
+    batch_invariance(dense, params, trace, {"continuous": rep}, path=path)
 
 
 # ----------------------------------------------------------------------
@@ -4234,6 +4570,13 @@ def main(argv) -> int:
                   in path_sharded_world2(init, world1).items()})
     emit(phase="path_seconds", path="sharded_world2",
          seconds=time.perf_counter() - t0)
+    for name, run in (("moe_ep_world2", path_moe_ep_world2),
+                      ("lm_mesh_world1", path_lm_mesh_world1)):
+        t0 = time.perf_counter()
+        later[name], _ = counted(name, run, {})
+        check(not any(later[name].values()), f"{name}: launches {later[name]}")
+        emit(phase="path_seconds", path=name,
+             seconds=time.perf_counter() - t0)
     path_baselines(ds)
     t0 = time.perf_counter()
     later["serve_olmo_1b"] = path_serve_olmo_1b()

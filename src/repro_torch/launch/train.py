@@ -6,13 +6,19 @@ Port of ``repro/launch/train.py``, with its flags and defaults, plus
 * ``--driver fl``   — the paper's pipeline: BFLC over federated clients
   (synthetic FEMNIST-like data, CNN global model) through
   ``repro_torch.api.build_runtime``.
-* ``--driver lm``   — the production pipeline on one card: a
-  ~100M-parameter decoder (``lm_100m_config``: 116,411,136 params)
-  trained on synthetic Markov-chain data with ``launch/steps.py``'s train
-  step, in ``standard`` or ``bflc`` (committee-weighted) mode.
-  ``--use-all-devices`` is accepted for the reference's command lines and
-  means the one device: the LM's sharded step waits with the LM mesh
-  (ROADMAP.md Queue 1 item 11).
+* ``--driver lm``   — the production pipeline: a ~100M-parameter decoder
+  (``lm_100m_config``: 116,411,136 params) trained on synthetic
+  Markov-chain data with ``launch/steps.py``'s train step, in
+  ``standard`` or ``bflc`` (committee-weighted) mode.  Without
+  ``--use-all-devices`` it trains on one device (the 1 x 1
+  ``LocalMesh``); with it, on ``make_host_mesh(1, world)`` over the
+  initialized process group (the reference's ``make_host_mesh(1,
+  len(jax.devices()))``), its params and moments DTensors laid out by
+  ``param_pspecs`` (``fsdp=False``, as the reference's policy).  Every
+  rank runs the same command: ``torchrun --nproc-per-node N -m
+  repro_torch.launch.train --use-all-devices`` (``init_process_group``
+  is called when torchrun's environment is there), or ``run_lm`` on a
+  group its caller set up.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --driver lm --steps 200
@@ -73,6 +79,16 @@ def run_lm(args, on_step=None):
 
     from repro_torch.data.lm_synthetic import MarkovLM
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import (
+        LocalMesh,
+        make_host_mesh,
+        mesh_axis_size,
+    )
+    from repro_torch.launch.shardings import (
+        ShardingPolicy,
+        distribute,
+        param_pspecs,
+    )
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.models import init_model
     from repro_torch.optim import adamw, linear_warmup_cosine
@@ -83,13 +99,22 @@ def run_lm(args, on_step=None):
     if args.small:
         cfg = cfg.replace(num_units=4, d_model=256, num_heads=8,
                           num_kv_heads=4, d_ff=1024)
+    if getattr(args, "use_all_devices", False):
+        mesh = make_host_mesh(1, _world(), device=device)
+    else:
+        mesh = LocalMesh()
+    pol = ShardingPolicy(
+        dp_axes=("data",), dp_sizes=(mesh_axis_size(mesh, "data"),),
+        model_axis_size=mesh_axis_size(mesh, "model"), fsdp=False,
+    )
     opt = adamw(linear_warmup_cosine(args.lr, 20, args.steps))
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"model: {n_params/1e6:.1f}M params, device {device}")
+    print(f"model: {n_params/1e6:.1f}M params, device {device}, mesh {mesh}")
+    params = distribute(params, mesh, param_pspecs(cfg, params, pol))
 
     step_fn = make_train_step(
-        cfg, opt, mode=args.mode,
+        cfg, opt, mesh, pol, mode=args.mode,
         num_cohorts=args.cohorts, committee_size=args.committee,
     )
     state = TrainState(params, opt.init(params),
@@ -114,9 +139,28 @@ def run_lm(args, on_step=None):
                   f"({(time.perf_counter()-t0)/(step+1):.2f}s/step)")
     if args.ckpt:
         from repro_torch.checkpoint import save_pytree
-        save_pytree(args.ckpt, state.params)
+        from repro_torch.models.shardctx import whole
+        from repro_torch.tree import tree_map
+
+        save_pytree(args.ckpt, tree_map(whole, state.params))
         print("saved", args.ckpt)
     return float(metrics["loss"])
+
+
+def _world() -> int:
+    """The process group's size, initializing it from torchrun's
+    environment when nothing has yet."""
+    import os
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                "--use-all-devices needs an initialized process group: run "
+                "under torchrun, or call init_process_group before run_lm")
+        dist.init_process_group()
+    return dist.get_world_size()
 
 
 def run_fl(args):
@@ -160,7 +204,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--committee", type=int, default=4)
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--use-all-devices", action="store_true",
-                    help="accepted; the port trains on one device")
+                    help="train on make_host_mesh(1, world) over the "
+                         "process group (torchrun)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--log-every", type=int, default=10)
     # fl

@@ -1,13 +1,16 @@
 """The LM zoo (port of ``repro.models``).
 
-Ported: the config schema, norms, dense / gated MLPs, RoPE and M-RoPE,
-HuBERT's convolutional position embedding, grouped-query attention with
-the sliding-window ring buffer (dense up to ``DENSE_MAX``, flash with a
-recompute backward beyond), MoE (the dense path), Mamba and the jamba
-hybrid (exact sequential scan), RWKV-6 (chunked prefill, exact decode),
-the audio / vision frontends and their batch stubs, the decode caches and
-the model stack.  The expert-parallel MoE waits for ROADMAP.md Queue 1
-item 11.
+The config schema, norms, dense / gated MLPs, RoPE and M-RoPE, HuBERT's
+convolutional position embedding, grouped-query attention with the
+sliding-window ring buffer (dense up to ``DENSE_MAX``, flash with a
+recompute backward beyond), MoE (the dense path and the expert-parallel
+one with capacity dispatch), Mamba and the jamba hybrid (exact
+sequential scan), RWKV-6 (chunked prefill, exact decode), the audio /
+vision frontends and their batch stubs, the decode caches and the model
+stack.  ``forward`` / ``prefill`` / ``decode_step`` take the reference's
+``ctx`` (``shardctx.ShardCtx``): on a DeviceMesh the model runs on
+DTensor parameters under sharding propagation, activations pinned to
+the context's layout, and MoE layers take the expert-parallel path.
 """
 from repro_torch.models.cache import init_cache
 from repro_torch.models.config import LayerSpec, ModelConfig

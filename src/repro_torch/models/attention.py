@@ -22,8 +22,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.config import ATTN_LOCAL, ATTN_SWA, ModelConfig
-from repro_torch.models.flash import flash_attention
+from repro_torch.models.flash import flash_attention, pick_q_block
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
+from repro_torch.models.shardctx import grad_like, unshard_dim, whole
 
 DENSE_MAX = 2048     # max sequence length for the dense path
 
@@ -89,7 +90,7 @@ def _dense_attention(q, k, v, mask, softcap: float) -> torch.Tensor:
     Kv = k.shape[2]
     G = H // Kv
     qf = q.to(torch.float32) * (Dh ** -0.5)
-    qg = qf.reshape(B, Sq, Kv, G, Dh)
+    qg = unshard_dim(qf, 2, Kv).reshape(B, Sq, Kv, G, Dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
     if softcap > 0:
         scores = torch.tanh(scores / softcap) * softcap
@@ -114,10 +115,13 @@ def _project_qkv(params, x, cfg: ModelConfig):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    # on a mesh, a head count the model axis does not divide: the
+    # projection's columns are gathered before the heads are split
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
     return (
-        q.reshape(B, S, cfg.num_heads, hd),
-        k.reshape(B, S, cfg.num_kv_heads, hd),
-        v.reshape(B, S, cfg.num_kv_heads, hd),
+        unshard_dim(q, 2, H).reshape(B, S, H, hd),
+        unshard_dim(k, 2, Kv).reshape(B, S, Kv, hd),
+        unshard_dim(v, 2, Kv).reshape(B, S, Kv, hd),
     )
 
 
@@ -138,14 +142,23 @@ def attention_forward(
     cfg: ModelConfig,
     mixer: str,
     return_kv: bool = False,
+    ctx=None,
 ):
     """Full-sequence attention (training / prefill, no cache).
 
     With ``return_kv=True`` also returns the rotated K and V (for prefill
-    cache construction)."""
+    cache construction).  A ``ShardCtx`` pins Q / K / V to its head
+    layout, and on a model axis of M > 1 the flash path's blocks to
+    heads over model (H % M == 0) or, failing that, to Q blocks over
+    model (``pick_q_block``), as the reference does."""
     q, k, v = _project_qkv(params, x, cfg)
     q = _rotate(q, positions, cfg)
     k = _rotate(k, positions, cfg)
+    if ctx is not None and hasattr(ctx, "kv"):
+        # head-shard Q/K/V when head counts divide the model axis
+        q = ctx.q(q)
+        k = ctx.kv(k)
+        v = ctx.kv(v)
     pos2d = positions[0] if positions.dim() == 3 else positions
     window = cfg.sliding_window if is_windowed(mixer) else 0
     if x.shape[1] <= DENSE_MAX:
@@ -158,10 +171,23 @@ def attention_forward(
         G = cfg.num_heads // cfg.num_kv_heads
         k_e = k.repeat_interleave(G, dim=2) if G > 1 else k
         v_e = v.repeat_interleave(G, dim=2) if G > 1 else v
+        if ctx is not None and hasattr(ctx, "q"):
+            k_e = ctx.q(k_e)
+            v_e = ctx.q(v_e)
+        # block_spec over the canonical (B, nq, Kv, G, QB, ...) layout
+        q_block, block_spec, mesh = 512, None, None
+        if ctx is not None and getattr(ctx, "model_size", 1) > 1:
+            mesh = ctx.mesh
+            if ctx.q_spec is not None:     # H % mesh == 0: shard heads
+                block_spec = (ctx.dp, None, ctx.model_axis, None, None, None)
+            else:                          # shard the q-block dim instead
+                q_block = pick_q_block(x.shape[1], ctx.model_size)
+                block_spec = (ctx.dp, ctx.model_axis, None, None, None, None)
         out = flash_attention(q, k_e, v_e, pos2d, pos2d, cfg.causal, window,
-                              q_block=512)
+                              q_block=q_block, block_spec=block_spec,
+                              mesh=mesh)
     B, Sq = out.shape[0], out.shape[1]
-    out = out.reshape(B, Sq, -1) @ params["wo"]
+    out = grad_like(out.reshape(B, Sq, -1)) @ params["wo"]
     if return_kv:
         return out, k, v
     return out
@@ -205,13 +231,15 @@ def attention_decode(
     slot = (position % Sc).long()
 
     b_idx = torch.arange(x.shape[0], device=x.device)
-    cache_k[b_idx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[b_idx, slot] = v[:, 0].to(cache_v.dtype)
+    cache_k[b_idx, slot] = whole(k[:, 0]).to(cache_k.dtype)
+    cache_v[b_idx, slot] = whole(v[:, 0]).to(cache_v.dtype)
     cache_pos[b_idx, slot] = position.to(cache_pos.dtype)
 
     q_pos = position[:, None]                       # (B,1)
     mask = _pair_mask(q_pos, cache_pos, causal=cfg.causal, window=window)
-    out = _dense_attention(q, cache_k, cache_v, mask, cfg.attn_logit_softcap)
+    # the cache is whole on every rank: so is the one query it attends
+    out = _dense_attention(whole(q), cache_k, cache_v, mask,
+                           cfg.attn_logit_softcap)
     B = out.shape[0]
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, cache_k, cache_v, cache_pos

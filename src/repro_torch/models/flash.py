@@ -14,9 +14,18 @@ custom VJP: autograd through the forward's loop would keep every P block
 alive for the backward (about 100 GB at hubert-xlarge's width and
 S = 4096).
 
-GQA layout: q (B,Sq,H,Dh); k,v (B,Skv,Kv,Dh); H = Kv*G.  The reference's
-``pick_q_block``, ``block_spec`` and ``mesh`` place the blocks on a mesh;
-on one card there is none, and the model's call takes ``q_block = 512``.
+GQA layout: q (B,Sq,H,Dh); k,v (B,Skv,Kv,Dh); H = Kv*G.  On a mesh
+(DTensor inputs), ``block_spec`` is the reference's 6-entry spec over the
+canonical (B, nq, Kv, G, QB, Dh) layout: entry 0 the batch's axes, entry
+1 the axis Q blocks are split over, entry 2 the axis heads are split
+over.  The reference pins q, the carries and lse to it and lets GSPMD
+split the einsums; here the same layout is a local map (the reference's
+blocks never talk to each other): q, k, v and the positions are
+redistributed to it, each rank runs ``FlashAttention`` on its local
+blocks, and the output is a DTensor in the same layout.  DTensor's own
+sharding rules are not used inside, because they cannot view the
+blocked dims of a tensor split over both mesh axes.  ``pick_q_block``
+picks a q-block size whose block count the model axis divides.
 """
 from __future__ import annotations
 
@@ -24,6 +33,18 @@ import torch
 
 KV_BLOCK = 512
 NEG_INF = -1e30
+
+
+def pick_q_block(seq: int, model_size: int, max_block: int = 512) -> int:
+    """Largest block <= max_block such that (seq/block) % model_size == 0
+    (falls back to max_block when impossible)."""
+    for qb in (512, 256, 128, 64):
+        if qb > max_block:
+            continue
+        nq = seq // qb
+        if seq % qb == 0 and nq % model_size == 0:
+            return qb
+    return max_block
 
 
 def _pair_mask(q_pos, kv_pos, *, causal: bool, window: int):
@@ -90,7 +111,8 @@ def _forward(q, k, v, q_pos, kv_pos, causal, window, q_block):
         p = torch.exp(s - m_new[..., None])
         scale = torch.exp(m - m_new)
         l = l * scale + p.sum(dim=-1)
-        acc = acc * scale[..., None] + torch.einsum("bnkgqs,bskd->bnkgqd", p, vb)
+        acc = acc * scale[..., None] + torch.einsum("bnkgqs,bskd->bnkgqd", p,
+                                                    vb)
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
     out = acc / l_safe[..., None]                       # (B,nq,Kv,G,QB,Dh)
@@ -141,8 +163,57 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _sharded(q, k, v, q_pos, kv_pos, causal, window, q_block, block_spec,
+             mesh):
+    """``FlashAttention`` on each rank's blocks of ``block_spec``'s layout.
+
+    q and the output are split as (batch, Q blocks, heads); k and v as
+    (batch, -, heads), whole along the keys.  An input's local gradient
+    is declared split where the input is, a partial sum over an axis that
+    splits only the output (k and v over the Q-block axis), and
+    replicated over an axis that splits neither (every rank of it
+    computed the same)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.launch.mesh import mesh_axis_names, mesh_axis_size
+    from repro_torch.launch.shardings import P, placements, spec_axes
+
+    dp, q_axis, head_axis = tuple(block_spec)[:3]
+    if q_axis is not None and (q.shape[1] // q_block) % mesh_axis_size(
+            mesh, q_axis):
+        q_axis = None      # pick_q_block found no even split: Q blocks whole
+    q_spec = P(dp, q_axis, head_axis, None)
+    names = mesh_axis_names(mesh)
+    out_axes = spec_axes(q_spec)
+
+    def local(t, spec):
+        if not isinstance(t, DTensor):     # positions every rank holds whole
+            t = DTensor.from_local(t, mesh, (Replicate(),) * len(names),
+                                   run_check=False)
+        pl = placements(mesh, spec)
+        axes = spec_axes(spec)
+        grad_pl = tuple(
+            p if a in axes or mesh_axis_size(mesh, a) == 1
+            else Partial() if a in out_axes else Replicate()
+            for a, p in zip(names, pl))
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    kv_spec = P(dp, None, head_axis, None)
+    out = FlashAttention.apply(
+        local(q, q_spec), local(k, kv_spec), local(v, kv_spec),
+        local(q_pos, P(dp, q_axis)), local(kv_pos, P(dp, None)), causal,
+        window, q_block)
+    return DTensor.from_local(out, mesh, placements(mesh, q_spec),
+                              run_check=False)
+
+
 def flash_attention(q, k, v, q_pos, kv_pos, causal: bool, window: int,
-                    q_block: int = 512):
+                    q_block: int = 512, block_spec=None, mesh=None):
     """Returns out (B,Sq,H,Dh).  Sq % q_block == 0, Skv % KV_BLOCK == 0,
-    else ``ValueError``."""
-    return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window, q_block)
+    else ``ValueError``.  With a ``block_spec`` and a ``mesh``, q, k and v
+    are DTensors and so is the output (``_sharded``)."""
+    if block_spec is not None and mesh is not None:
+        return _sharded(q, k, v, q_pos, kv_pos, causal, window, q_block,
+                        block_spec, mesh)
+    return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                q_block)

@@ -8,6 +8,12 @@ audio (HuBERT) and vision (Qwen2-VL) frontends.  Three entry points:
     decode cache.
   * ``decode_step`` — one token against the cache, which it updates in
     place.
+Each takes the reference's ``ctx``: a ``ShardCtx`` (``launch.steps.
+make_moe_ctx``) pins activations and logits to its layout, gives the MoE
+layers their mesh (so ``moe_impl="auto"`` takes the expert-parallel
+path) and, on a DeviceMesh, runs the model under DTensor's
+``implicit_replication``; without one the model runs as on one device,
+its MoE layers dense.
 
 Unit parameters keep the reference's stacked layout (every unit leaf has
 a leading ``num_units`` axis; ``tail`` is a tuple), so the port's
@@ -35,6 +41,7 @@ streams.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -68,6 +75,7 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.shardctx import whole
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
@@ -144,6 +152,21 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``init_model``'s tree as ``meta`` tensors: shapes and dtypes with no
+    storage (the reference's ``jax.eval_shape(init_model)``), for
+    ``param_pspecs`` of a full-size config."""
+    return init_model(_MetaGenerator(), cfg)
+
+
 # ----------------------------------------------------------------------------
 # embedding / head
 # ----------------------------------------------------------------------------
@@ -186,20 +209,22 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
-                        positions: torch.Tensor, cfg: ModelConfig,
+                        positions: torch.Tensor, cfg: ModelConfig, ctx,
                         collect_cache: bool, max_len: int):
-    """Returns (x, aux_loss, cache_entry_or_None)."""
+    """Returns (x, aux_loss, cache_entry_or_None).  ``ctx`` is a
+    ``ShardCtx``, a bare ``MoEShardingCtx`` or None."""
     h = apply_norm(lp["norm1"], x, cfg)
     cache_entry = None
     if spec.mixer.startswith("attn"):
         if collect_cache:
             mixed, krot, vrot = attention_forward(
-                lp["mixer"], h, positions, cfg, spec.mixer, return_kv=True)
+                lp["mixer"], h, positions, cfg, spec.mixer, return_kv=True,
+                ctx=ctx)
             cache_entry = _kv_to_cache(cfg, spec, krot, vrot, positions,
                                        max_len)
         else:
             mixed = attention_forward(lp["mixer"], h, positions, cfg,
-                                      spec.mixer)
+                                      spec.mixer, ctx=ctx)
     elif spec.mixer == "mamba":
         mixed, state = mamba_mod.mamba_forward(lp["mixer"], h, cfg)
         if collect_cache:
@@ -217,7 +242,7 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
         if spec.mlp == MLP_DENSE:
             x = x + apply_mlp(lp["mlp"], h2, cfg)
         elif spec.mlp == MLP_MOE:
-            y, aux = apply_moe(lp["mlp"], h2, cfg)
+            y, aux = apply_moe(lp["mlp"], h2, cfg, getattr(ctx, "moe", ctx))
             x = x + y
         elif spec.mlp == MLP_RWKV:
             y, cm_state = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg)
@@ -228,7 +253,9 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
 
 
 def _kv_to_cache(cfg, spec, k, v, positions, max_len):
-    """Pack prefill K/V (B,S,Kv,hd) into a decode cache entry."""
+    """Pack prefill K/V (B,S,Kv,hd) into a decode cache entry (plain
+    tensors: on a mesh, K / V are gathered whole)."""
+    k, v, positions = whole(k), whole(v), whole(positions)
     B, S = k.shape[0], k.shape[1]
     L = attn_cache_len(cfg, spec.mixer, max_len)
     pos2d = positions[0] if positions.dim() == 3 else positions
@@ -253,12 +280,12 @@ def _kv_to_cache(cfg, spec, k, v, positions, max_len):
 def _write_state(cache: dict, new: dict) -> None:
     """Copy a recurrent state's new leaves into the cache's, in place."""
     for key, leaf in new.items():
-        cache[key].copy_(leaf)
+        cache[key].copy_(whole(leaf))
 
 
 def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
                        position: torch.Tensor, cache: dict, cfg: ModelConfig,
-                       mrope_position: Optional[torch.Tensor] = None):
+                       ctx=None, mrope_position: Optional[torch.Tensor] = None):
     """One token through one layer; ``cache`` is written in place."""
     h = apply_norm(lp["norm1"], x, cfg)
     if spec.mixer.startswith("attn"):
@@ -280,7 +307,7 @@ def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
         if spec.mlp == MLP_DENSE:
             x = x + apply_mlp(lp["mlp"], h2, cfg)
         elif spec.mlp == MLP_MOE:
-            x = x + apply_moe(lp["mlp"], h2, cfg)[0]
+            x = x + apply_moe(lp["mlp"], h2, cfg, getattr(ctx, "moe", ctx))[0]
         elif spec.mlp == MLP_RWKV:
             y, cm = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg,
                                                       state=cache["cm"])
@@ -315,8 +342,13 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
 
-def _unit_forward(unit_params, x, positions, cfg, collect_cache, max_len):
-    """One unit's layers in order: returns (x, aux, caches)."""
+def _pin_act(ctx, x):
+    return ctx.act(x) if hasattr(ctx, "act") else x
+
+
+def _unit_forward(unit_params, x, positions, cfg, ctx, collect_cache, max_len):
+    """One unit's layers in order, each output pinned to the context's
+    activation layout: returns (x, aux, caches)."""
     remat_layers = (cfg.remat == "layer" and not collect_cache
                     and torch.is_grad_enabled())
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -326,18 +358,19 @@ def _unit_forward(unit_params, x, positions, cfg, collect_cache, max_len):
             # per-layer checkpoint: the unit's backward re-materializes one
             # layer's internals at a time instead of the whole unit's
             x, aux = checkpoint(lambda lp, xin, _s=spec: apply_layer_forward(
-                lp, _s, xin, positions, cfg, False, 0)[:2],
+                lp, _s, xin, positions, cfg, ctx, False, 0)[:2],
                 unit_params[i], x, use_reentrant=False)
             ce = None
         else:
             x, aux, ce = apply_layer_forward(unit_params[i], spec, x, positions,
-                                             cfg, collect_cache, max_len)
+                                             cfg, ctx, collect_cache, max_len)
+        x = _pin_act(ctx, x)
         aux_total = aux_total + aux
         caches.append(ce)
     return x, aux_total, tuple(caches)
 
 
-def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
+def _stack_forward(params, cfg, x, positions, ctx, collect_cache, max_len):
     """The units in order, then the tail layers: (x, aux, unit caches,
     tail caches)."""
     per_unit: List[Tuple] = []
@@ -349,11 +382,11 @@ def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
             # the unit's checkpoint; with remat == "layer" the inner
             # per-layer checkpoints bound the re-backward's working set
             x, aux = checkpoint(lambda up, xin: _unit_forward(
-                up, xin, positions, cfg, False, 0)[:2],
+                up, xin, positions, cfg, ctx, False, 0)[:2],
                 unit_params, x, use_reentrant=False)
         else:
             x, aux, caches = _unit_forward(unit_params, x, positions, cfg,
-                                           collect_cache, max_len)
+                                           ctx, collect_cache, max_len)
             per_unit.append(caches)
         aux_total = aux_total + aux
     unit_caches = ()
@@ -365,33 +398,48 @@ def _stack_forward(params, cfg, x, positions, collect_cache, max_len):
     tail_caches = []
     for i, spec in enumerate(cfg.tail):
         x, aux, ce = apply_layer_forward(params["tail"][i], spec, x, positions,
-                                         cfg, collect_cache, max_len)
+                                         cfg, ctx, collect_cache, max_len)
         aux_total = aux_total + aux
         tail_caches.append(ce)
     return x, aux_total, unit_caches, tuple(tail_caches)
 
 
-def forward(params, cfg: ModelConfig, batch: Batch):
+def _scope(ctx):
+    return ctx.scope() if hasattr(ctx, "scope") else contextlib.nullcontext()
+
+
+def forward(params, cfg: ModelConfig, batch: Batch, ctx=None):
     """Full-sequence forward: returns (logits, aux_loss); the aux loss is
-    the MoE routers' load-balance loss (0 without MoE layers)."""
-    x = embed_inputs(params, cfg, batch)
-    positions = batch.positions
-    if positions is None:
-        positions = _default_positions(x)
-    x, aux, _, _ = _stack_forward(params, cfg, x, positions, False, 0)
-    return lm_logits(params, cfg, x), aux
+    the MoE routers' load-balance loss (0 without MoE layers).  ``ctx`` (a
+    ``ShardCtx`` from ``launch.steps.make_moe_ctx``) pins activations and
+    logits to its layout and gives the MoE layers their mesh; without one
+    an MoE layer under ``moe_impl="auto"`` takes the dense path."""
+    with _scope(ctx):
+        x = _pin_act(ctx, embed_inputs(params, cfg, batch))
+        positions = batch.positions
+        if positions is None:
+            positions = _default_positions(x)
+        x, aux, _, _ = _stack_forward(params, cfg, x, positions, ctx, False, 0)
+        logits = lm_logits(params, cfg, x)
+        if hasattr(ctx, "logits"):
+            logits = ctx.logits(logits)
+        return logits, aux
 
 
-def prefill(params, cfg: ModelConfig, batch: Batch, max_len: int):
+def prefill(params, cfg: ModelConfig, batch: Batch, max_len: int, ctx=None):
     """Prefill: returns (logits_last (B,1,V), cache) with the cache filled."""
-    x = embed_inputs(params, cfg, batch)
-    positions = batch.positions
-    if positions is None:
-        positions = _default_positions(x)
-    x, _, unit_caches, tail_caches = _stack_forward(params, cfg, x, positions,
-                                                    True, max_len)
-    logits = lm_logits(params, cfg, x[:, -1:])
-    return logits, {"units": unit_caches, "tail": tail_caches}
+    with _scope(ctx):
+        x = embed_inputs(params, cfg, batch)
+        positions = batch.positions
+        if positions is None:
+            positions = _default_positions(x)
+        x = _pin_act(ctx, x)
+        x, _, unit_caches, tail_caches = _stack_forward(
+            params, cfg, x, positions, ctx, True, max_len)
+        logits = lm_logits(params, cfg, x[:, -1:])
+        if hasattr(ctx, "logits"):
+            logits = ctx.logits(logits)
+        return logits, {"units": unit_caches, "tail": tail_caches}
 
 
 def decode_step(
@@ -400,6 +448,7 @@ def decode_step(
     tokens: torch.Tensor,        # (B,1) int
     position: torch.Tensor,      # (B,) int32
     cache: dict,
+    ctx=None,
     mrope_position: Optional[torch.Tensor] = None,   # (3,B,1)
     embeds: Optional[torch.Tensor] = None,           # (B,1,D) frontend decode
 ):
@@ -407,14 +456,20 @@ def decode_step(
     in place.  ``embeds``, when given, replace the token embeddings."""
     if cfg.frontend == "audio":
         raise ValueError("encoder-only architectures have no decode step")
-    x = embeds if embeds is not None else _embed_tokens(params, cfg, tokens)
-    for u in range(cfg.num_units):
-        unit_params = unit_slice(params["units"], u)
-        unit_cache = unit_slice(cache["units"], u)
-        for i, spec in enumerate(cfg.unit):
-            x = apply_layer_decode(unit_params[i], spec, x, position,
-                                   unit_cache[i], cfg, mrope_position)
-    for i, spec in enumerate(cfg.tail):
-        x = apply_layer_decode(params["tail"][i], spec, x, position,
-                               cache["tail"][i], cfg, mrope_position)
-    return lm_logits(params, cfg, x), cache
+    with _scope(ctx):
+        x = embeds if embeds is not None else _embed_tokens(params, cfg,
+                                                            tokens)
+        for u in range(cfg.num_units):
+            unit_params = unit_slice(params["units"], u)
+            unit_cache = unit_slice(cache["units"], u)
+            for i, spec in enumerate(cfg.unit):
+                x = apply_layer_decode(unit_params[i], spec, x, position,
+                                       unit_cache[i], cfg, ctx, mrope_position)
+                x = _pin_act(ctx, x)
+        for i, spec in enumerate(cfg.tail):
+            x = apply_layer_decode(params["tail"][i], spec, x, position,
+                                   cache["tail"][i], cfg, ctx, mrope_position)
+        logits = lm_logits(params, cfg, x)
+        if hasattr(ctx, "logits"):
+            logits = ctx.logits(logits)
+        return logits, cache

@@ -78,9 +78,10 @@ def adamw(
     f32 = torch.float32
 
     def init(params):
+        # zeros_like keeps a DTensor parameter's mesh and placements
         zeros = tree_map(
-            lambda p: torch.zeros(p.shape, dtype=moment_dtype or p.dtype,
-                                  device=p.device), params)
+            lambda p: torch.zeros_like(p, dtype=moment_dtype or p.dtype),
+            params)
         return {"m": zeros, "v": tree_map(torch.clone, zeros)}
 
     @torch.no_grad()

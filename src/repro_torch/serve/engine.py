@@ -21,10 +21,20 @@ round commits a model block.  In-flight requests keep their caches and
 keep decoding; nothing is dropped.
 
 The engine runs on ``device``: CUDA by default, raising when CUDA is
-absent unless the caller passes ``device="cpu"``.
+absent unless the caller passes ``device="cpu"``.  Its steps take the
+reference's ``mesh`` and ``pol`` (default: the 1 x 1 ``LocalMesh`` and
+the one-device policy, the reference's ``make_host_mesh(1, 1)``), so an
+MoE model under ``moe_impl="auto"`` serves through the expert-parallel
+path with its capacity dispatch: the idle slots' rows route too and take
+capacity, so a request's tokens may depend on the other rows (the
+same-row oracle holds only on the dense path; a replay of the ticks the
+engine ran holds always).  On a ``DeviceMesh`` the parameters are
+DTensors laid out by ``param_pspecs``, and the tokens, positions and
+caches are plain tensors every rank holds whole.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -34,11 +44,19 @@ import numpy as np
 import torch
 
 from repro_torch.device import HostCopy, resolve_device, synchronize, to_device
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.mesh import LocalMesh
+from repro_torch.launch.shardings import distribute, param_pspecs
+from repro_torch.launch.steps import (
+    make_decode_step,
+    make_prefill_step,
+    one_device_policy,
+)
 from repro_torch.models import init_cache
 from repro_torch.models.cache import insert_slot_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.moe import count_drops
+from repro_torch.models.shardctx import whole
 from repro_torch.models.transformer import Batch
 from repro_torch.serve.scheduler import FifoScheduler
 from repro_torch.serve.slots import Request, RequestResult, SlotTable
@@ -203,6 +221,8 @@ class ServeEngine:
         *,
         num_slots: int = 4,
         max_len: int = 128,
+        mesh=None,
+        pol=None,
         param_source=None,
         swap_poll_every: int = 1,
         device="cuda",
@@ -212,25 +232,41 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.mesh = LocalMesh() if mesh is None else mesh
+        self.pol = one_device_policy() if pol is None else pol
+        self.params = self._place(params)
         self.num_slots = num_slots
         self.max_len = max_len
         self.source = param_source
         self.swap_poll_every = max(1, swap_poll_every)
         self.version = getattr(param_source, "version", 0) or 0
-        self._prefill_step = make_prefill_step(cfg, max_len=max_len)
-        self._decode = make_decode_step(cfg, return_logits=False)
+        self._prefill_step = make_prefill_step(cfg, self.mesh, self.pol,
+                                               max_len=max_len)
+        self._decode = make_decode_step(cfg, self.mesh, self.pol,
+                                        return_logits=False)
+
+    def _place(self, params, like=None):
+        """The tree on the serving device (in ``like``'s dtypes), laid out
+        on the mesh by ``param_pspecs``."""
+        if like is None:
+            params = tree_map(lambda t: t.to(self.device), params)
+        else:
+            params = tree_map(lambda n, o: n.to(device=self.device,
+                                                dtype=o.dtype), params, like)
+        return distribute(params, self.mesh,
+                          param_pspecs(self.cfg, params, self.pol))
 
     # ------------------------------------------------------------------
     # the device steps
     # ------------------------------------------------------------------
     def _prefill(self, batch: Batch):
         logits, cache = self._prefill_step(self.params, batch)
-        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        tok = torch.argmax(whole(logits)[:, -1, :], dim=-1).to(torch.int32)
         return tok[:, None], cache
 
     def _tick(self, tokens, positions, cache):
         next_tok, cache = self._decode(self.params, tokens, positions, cache)
+        next_tok = whole(next_tok)
         positions.add_(1)
         return next_tok, positions, cache
 
@@ -280,10 +316,7 @@ class ServeEngine:
         ver, new_params = got
         # onto the serving device in the serving dtype, once; the structure
         # must match, which a chain model block of the same arch guarantees
-        self.params = tree_map(
-            lambda n, o: n.to(device=o.device, dtype=o.dtype),
-            new_params, self.params,
-        )
+        self.params = self._place(new_params, like=self.params)
         self.version = ver
         swaps.append({"round": int(ver), "tick": tick_idx,
                       "t": round(clock.now(), 6)})
@@ -315,11 +348,18 @@ class ServeEngine:
         policy: str = "continuous",
         clock=None,
         on_tick: Optional[Callable[[int], None]] = None,
+        record: Optional[list] = None,
     ) -> ServeReport:
         """Serve a trace to completion and return the per-request results.
 
         ``on_tick(tick_idx)`` fires at every tick boundary — used to commit
-        a new model block to the watched chain mid-trace.
+        a new model block to the watched chain mid-trace.  ``record``, a
+        list, receives the device steps in order, for ``replay_ticks``:
+        ``("admit", rid, slot, drops)`` (slot -1 for a one-token request)
+        and ``("tick", rids by row, drops)``, where ``drops`` is the
+        expert-parallel MoE's dropped assignments in that step (a 0-d
+        tensor, read later; 0 without MoE layers).  Without ``record`` the
+        drops are not counted, so the MoE layers launch nothing extra.
         """
         for r in requests:
             if r.max_new < 1:
@@ -332,6 +372,8 @@ class ServeEngine:
                     f" exceeds max_len {self.max_len}"
                 )
 
+        drop_counter = (count_drops if record is not None
+                        else contextlib.nullcontext)
         clock = clock or WallClock()
         sched = FifoScheduler(requests, policy=policy)
         table = SlotTable(self.num_slots)
@@ -356,9 +398,13 @@ class ServeEngine:
                 res = results[req.rid]
                 res.admitted = clock.now()
                 res.version_admitted = self.version
-                tok, slot_cache = self._prefill(
-                    prompt_batch(self.cfg, req.prompt, self.device))
+                with drop_counter() as drops:
+                    tok, slot_cache = self._prefill(
+                        prompt_batch(self.cfg, req.prompt, self.device))
                 one_shot = req.max_new == 1
+                if record is not None:
+                    record.append(("admit", req.rid, -1 if one_shot else b,
+                                   _total(drops)))
                 pending.append(_Pending(
                     tok=HostCopy(tok),
                     deliveries=[(req.rid, 0, True, one_shot)],
@@ -374,7 +420,12 @@ class ServeEngine:
             # ---- one decode tick over the whole slot batch ---------------
             if table.num_active:
                 rids = table.active_snapshot()
-                tokens, positions, cache = self._tick(tokens, positions, cache)
+                with drop_counter() as drops:
+                    tokens, positions, cache = self._tick(tokens, positions,
+                                                          cache)
+                if record is not None:
+                    record.append(("tick", [int(r) for r in rids],
+                                   _total(drops)))
                 done_slots = table.decrement_active()
                 done_set = set(done_slots)
                 deliveries = [
@@ -408,3 +459,42 @@ class ServeEngine:
         ordered = [results[r.rid] for r in sorted(requests, key=lambda q: q.rid)]
         return ServeReport(results=ordered, wall_s=wall, ticks=tick_idx,
                            occupancy=occupancy, swaps=swaps, policy=policy)
+
+
+def _total(drops: List[torch.Tensor]):
+    return torch.stack(drops).sum() if drops else torch.zeros((),
+                                                              dtype=torch.int64)
+
+
+@torch.no_grad()
+def replay_ticks(engine: "ServeEngine", requests: Sequence[Request],
+                 record: list) -> Dict[int, List[int]]:
+    """The replay oracle: the engine's own prefill and decode steps called
+    again, from a fresh state, on the admissions and ticks it recorded
+    (``run(..., record=...)``), with no scheduler, clock or deferred
+    reads; returns each request's tokens (for a run without a hot swap:
+    the replay serves ``engine.params``).  Under capacity dispatch a row's
+    tokens may depend on the other rows, so this, not a single-request
+    oracle, is what pins an MoE engine's service."""
+    by_rid = {r.rid: r for r in requests}
+    out: Dict[int, List[int]] = {r.rid: [] for r in requests}
+    tokens, positions, cache = engine._fresh_state()
+    for event in record:
+        if event[0] == "admit":
+            _, rid, b, _ = event
+            req = by_rid[rid]
+            tok, slot_cache = engine._prefill(
+                prompt_batch(engine.cfg, req.prompt, engine.device))
+            out[rid].append(int(tok[0, 0]))
+            if b >= 0:
+                tokens, positions, cache = engine._insert(
+                    cache, tokens, positions, slot_cache, tok,
+                    req.prompt_len, b)
+        else:
+            _, rids, _ = event
+            tokens, positions, cache = engine._tick(tokens, positions, cache)
+            host = tokens.cpu()
+            for b, rid in enumerate(rids):
+                if rid >= 0:
+                    out[rid].append(int(host[b, 0]))
+    return out

@@ -67,10 +67,15 @@ def test_training_modules_load_no_jax_alone(module):
 
 @pytest.mark.parametrize("module", ["repro_torch.fl.sharded",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.hostdevices"])
+                                    "repro_torch.hostdevices",
+                                    "repro_torch.launch.shardings",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.models.shardctx",
+                                    "repro_torch.models.moe"])
 def test_sharded_modules_load_no_jax_alone(module):
-    """The sharded engine's modules, each imported on its own in a fresh
-    process (a spawned rank imports them so)."""
+    """The sharded engines' modules (the round engine's and the LM mesh's),
+    each imported on its own in a fresh process (a spawned rank imports
+    them so)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
                           capture_output=True, text=True, timeout=120)

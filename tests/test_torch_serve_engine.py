@@ -634,36 +634,53 @@ def test_serve_cli_needs_cuda_unless_told_cpu():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "qwen3-moe-30b-a3b",
-                                  "jamba-1.5-large-398b", "qwen2-vl-7b"])
+                                  "jamba-1.5-large-398b", "qwen2-vl-7b",
+                                  "qwen3-moe-30b-a3b@auto",
+                                  "jamba-1.5-large-398b@auto"])
 def test_rwkv_and_moe_engines_match_reference(arch):
-    """The smoke configs of RWKV-6 (a recurrent decode state), the MoE
-    (dense path), the jamba hybrid (attention and a Mamba conv / SSM
-    state, MoE) and qwen2-vl (M-RoPE: text prompts with (3, 1, S)
-    positions, each tick's position on all three streams) behind both
-    engines on one VirtualClock trace of two
-    slots, each slot serving several requests in turn: every request
-    equal to its oracles (a finished request's state leaks into no later
-    one) and the reference's service tick for tick, token for token.  The
-    reference runs its MoE on the dense path (``moe_impl="dense"``), the
-    port's only one."""
+    """The smoke configs of RWKV-6 (a recurrent decode state), the MoE,
+    the jamba hybrid (attention and a Mamba conv / SSM state, MoE) and
+    qwen2-vl (M-RoPE: text prompts with (3, 1, S) positions, each tick's
+    position on all three streams) behind both engines on one
+    VirtualClock trace of two slots, each slot serving several requests
+    in turn, and the reference's service tick for tick, token for token.
+
+    The MoE archs run twice.  With ``moe_impl="dense"`` set on both
+    packages every request equals its oracles (a finished request's
+    state leaks into no later one).  At ``@auto``, both packages'
+    default, the engines take the expert-parallel path on their 1 x 1
+    meshes, whose capacity dispatch lets one row's routing drop another
+    row's assignment: there every request equals the replay oracle
+    (``replay_ticks``), and the service the reference's."""
     import dataclasses
 
+    from repro_torch.serve.engine import replay_ticks
+
+    arch, _, impl = arch.partition("@")
     cfg = registry.smoke_config(arch)
     jcfg = jreg.smoke_config(arch)
-    if jcfg.num_experts:
+    if jcfg.num_experts and impl != "auto":
         jcfg = dataclasses.replace(jcfg, moe_impl="dense")
+        cfg = cfg.replace(moe_impl="dense")
     ref_np = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(3), jcfg))
     jp, params = jax.tree.map(jnp.asarray, ref_np), from_numpy_tree(ref_np)
     kw = dict(num_requests=6, rate=1.0, prompt_lens=(8, 12), gen_lens=(3, 8),
               vocab_size=cfg.vocab_size, seed=4)
     trace, jtrace = make_poisson_trace(**kw), j_make_poisson_trace(**kw)
-    port_rep = ServeEngine(cfg, params, num_slots=2, max_len=MAX_LEN,
-                           device="cpu").run(trace, policy="continuous",
-                                             clock=VirtualClock())
+    engine = ServeEngine(cfg, params, num_slots=2, max_len=MAX_LEN,
+                         device="cpu")
+    record = []
+    port_rep = engine.run(trace, policy="continuous", clock=VirtualClock(),
+                          record=record)
     slots = [r.slot for r in port_rep.results]
     assert max(slots.count(s) for s in set(slots)) >= 3   # slots are reused
-    for res, req in zip(port_rep.results, trace):
-        assert oracles_hold(cfg, params, res, req, 2), (arch, res.rid)
+    if impl == "auto":
+        replay = replay_ticks(engine, trace, record)
+        for res in port_rep.results:
+            assert res.tokens == replay[res.rid], (arch, res.rid)
+    else:
+        for res, req in zip(port_rep.results, trace):
+            assert oracles_hold(cfg, params, res, req, 2), (arch, res.rid)
     ref_rep = JServeEngine(jcfg, jp, num_slots=2, max_len=MAX_LEN).run(
         jtrace, policy="continuous", clock=JVirtualClock())
     mesh = make_host_mesh(1, 1)
@@ -672,6 +689,39 @@ def test_rwkv_and_moe_engines_match_reference(arch):
     steps = (jax.jit(j_make_prefill(jcfg, mesh, pol, max_len=MAX_LEN)),
              jax.jit(j_make_decode(jcfg, mesh, pol)))
     assert_same_service(port_rep, ref_rep, steps, {0: jp}, jtrace)
+
+
+def test_run_counts_drops_only_when_recording(monkeypatch):
+    """A plain ``run`` enters no drop counter, so the expert-parallel MoE
+    launches nothing for a count nobody reads; ``run(..., record=)``
+    counts a step's drops once per admission and tick, and serves the
+    same tokens."""
+    from repro_torch.models import init_model
+    from repro_torch.serve import engine as serve_engine
+
+    entered = []
+    real = serve_engine.count_drops
+
+    def spy():
+        entered.append(1)
+        return real()
+
+    monkeypatch.setattr(serve_engine, "count_drops", spy)
+    cfg = registry.smoke_config("qwen3-moe-30b-a3b")
+    params = init_model(torch.Generator().manual_seed(0), cfg)
+    trace = make_poisson_trace(num_requests=4, rate=1.0, prompt_lens=(8,),
+                               gen_lens=(3,), vocab_size=cfg.vocab_size,
+                               seed=1)
+    engine = ServeEngine(cfg, params, num_slots=2, max_len=MAX_LEN,
+                         device="cpu")
+    plain = engine.run(trace, policy="continuous", clock=VirtualClock())
+    assert entered == []
+    record = []
+    counted = engine.run(trace, policy="continuous", clock=VirtualClock(),
+                         record=record)
+    assert len(entered) == len(record) > 0
+    assert ([r.tokens for r in plain.results]
+            == [r.tokens for r in counted.results])
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "mixtral-8x7b",

@@ -11,9 +11,12 @@ and rwkv6-7b; jamba-1.5-large-398b (the attention + Mamba / MoE hybrid),
 hubert-xlarge (the audio frontend: no tokens, the loss on the masked
 frames of the reference's ``hubert_batch``) and qwen2-vl-7b (the vision
 frontend: patch embeddings and M-RoPE positions of the reference's
-``vlm_batch``, whose ``loss_mask`` masks the image slots).  The port's MoE is the dense path, so the reference runs
-its MoE configs with ``moe_impl="dense"`` (on its host mesh ``"auto"``
-would take the expert-parallel path, whose capacity can drop tokens).
+``vlm_batch``, whose ``loss_mask`` masks the image slots).  The MoE
+configs run with ``moe_impl="dense"`` set on both packages (on a mesh
+``"auto"`` takes the expert-parallel path, whose capacity can drop
+tokens), and again at ``@auto``, both packages' default: the port's
+steps on their default 1 x 1 ``LocalMesh`` against the reference's on
+its 1 x 1 host mesh, capacity dispatch and drops on both sides.
 
 Tolerances (float32 in both; the matmuls sum in another order than
 XLA's):
@@ -76,6 +79,8 @@ torch.set_num_threads(2)
 DENSE = ("olmo-1b", "qwen1.5-4b", "phi4-mini-3.8b", "gemma3-4b")
 NON_DENSE = ("mixtral-8x7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
              "jamba-1.5-large-398b")
+MOE_AUTO = ("mixtral-8x7b@auto", "qwen3-moe-30b-a3b@auto",
+            "jamba-1.5-large-398b@auto")
 FRONTENDS = ("hubert-xlarge", "qwen2-vl-7b")
 B, S = 8, 16
 LOSS_RTOL = 1e-6
@@ -105,11 +110,25 @@ def ref_params():
 
 
 def _ref_cfg(arch):
-    """The reference's smoke config, its MoE on the dense path."""
+    """The reference's smoke config, its MoE on the dense path unless the
+    case is ``<arch>@auto``."""
     import dataclasses
 
-    cfg = jreg.smoke_config(arch)
-    return dataclasses.replace(cfg, moe_impl="dense") if cfg.num_experts else cfg
+    name, _, impl = arch.partition("@")
+    cfg = jreg.smoke_config(name)
+    if cfg.num_experts and impl != "auto":
+        cfg = dataclasses.replace(cfg, moe_impl="dense")
+    return cfg
+
+
+def _port_cfg(arch):
+    """The port's smoke config with the same MoE implementation."""
+    return registry.smoke_config(arch.partition("@")[0]).replace(
+        moe_impl=_ref_cfg(arch).moe_impl)
+
+
+def _base(arch):
+    return arch.partition("@")[0]
 
 
 def _tokens(vocab, rows, seed):
@@ -183,14 +202,14 @@ def test_token_ce_matches_reference():
 
 @pytest.mark.parametrize("committee", [4, 3])
 @pytest.mark.parametrize("arch", ("olmo-1b", "gemma3-4b") + NON_DENSE
-                         + FRONTENDS)
+                         + FRONTENDS + MOE_AUTO)
 def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
                                           ref_params):
     """standard_loss and bflc_loss (Q even and odd) and their gradients."""
     mesh, pol = mesh_pol
-    jcfg, cfg = _ref_cfg(arch), registry.smoke_config(arch)
+    jcfg, cfg = _ref_cfg(arch), _port_cfg(arch)
     ctx = jsteps.make_moe_ctx(jcfg, mesh, pol, batch_sharded=True)
-    p_np = ref_params(arch)
+    p_np = ref_params(_base(arch))
     mask = np.ones((B, S), np.float32)
     mask[1, 5:] = 0.0
     jb, tb = _arch_batches(jcfg, B, 1, mask)
@@ -209,7 +228,7 @@ def test_losses_and_grads_match_reference(arch, committee, mesh_pol,
         tg, ttot, tce = grad_fn(from_numpy_tree(p_np), tb, tv)
         np.testing.assert_allclose(float(ttot), float(jtot), rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(tce), float(jce), rtol=LOSS_RTOL)
-        rtol = (NON_DENSE_TOL["grad_rtol"] if arch in NON_DENSE
+        rtol = (NON_DENSE_TOL["grad_rtol"] if _base(arch) in NON_DENSE
                 else GRAD_RTOL)[mode]
         _assert_leafwise(tg, jg, rtol, f"{mode} grads")
         if jcfg.num_experts:     # the router's aux loss is in the total
@@ -273,7 +292,7 @@ def test_poisoned_cohort_gets_smallest_weight(committee, mesh_pol, ref_params):
         tw = steps.committee_weights(cl, member)
     assert int(np.argmin(jw)) == 0 and int(torch.argmin(tw)) == 0
     np.testing.assert_allclose(tw.numpy(), jw, rtol=1e-4, atol=1e-7)
-    _, ce = steps.bflc_loss(tp, cfg, tb, tv, 4, committee)
+    _, ce = steps.bflc_loss(tp, cfg, tb, tv, None, 4, committee)
     np.testing.assert_allclose(float(ce), float(torch.sum(tw * cl)), rtol=1e-6)
 
 
@@ -308,19 +327,19 @@ def _opts(lr=1e-2):
 
 
 @pytest.mark.parametrize("mode", ["standard", "bflc"])
-@pytest.mark.parametrize("arch", DENSE + NON_DENSE + FRONTENDS)
+@pytest.mark.parametrize("arch", DENSE + NON_DENSE + FRONTENDS + MOE_AUTO)
 def test_train_step_matches_reference(arch, mode, mesh_pol, ref_params):
-    tol = (NON_DENSE_TOL if arch in NON_DENSE else
+    tol = (NON_DENSE_TOL if _base(arch) in NON_DENSE else
            dict(loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL,
                 param_atol=PARAM_ATOL, moment_rtol=GRAD_RTOL[mode]))
     mesh, pol = mesh_pol
-    jcfg, cfg = _ref_cfg(arch), registry.smoke_config(arch)
+    jcfg, cfg = _ref_cfg(arch), _port_cfg(arch)
     jopt, opt = _opts()
     jstep = jax.jit(jsteps.make_train_step(jcfg, jopt, mesh, pol, mode=mode,
                                            num_cohorts=4, committee_size=4))
     step = steps.make_train_step(cfg, opt, mode=mode, num_cohorts=4,
                                  committee_size=4)
-    p = jax.tree.map(jnp.asarray, ref_params(arch))
+    p = jax.tree.map(jnp.asarray, ref_params(_base(arch)))
     js = jsteps.TrainState(p, jopt.init(p), jnp.zeros((), jnp.int32))
     n = lambda t: jax.tree.map(np.asarray, t)
     ts = train_state_from_numpy(n(js.params), n(js.opt_state), js.step)
