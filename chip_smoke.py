@@ -278,6 +278,34 @@ Phases, one JSON line each:
            train_fl  run_fl for 2 rounds at the CLI's defaults (a plain f32
                     chain: no kernel launches but the local trainer's
                     client_gemm): verify(), accuracy in [0, 1]
+           lm_round_100m  the BFLC round on launch/train.py's repro-100m LM
+                    at full width and depth (116,411,136 f32 params)
+                    through build_runtime(lm_adapter(cfg), ...): 32 clients
+                    of MarkovLM(8192) rows of 256 tokens (a dialect a
+                    client), P = 10, Q = 6, k = 4, 4 local steps of batch
+                    8, an int8 chain scored by committee_int8, 2 rounds
+                    from a warm start (60 AdamW steps on the pooled rows):
+                    verify(), the read-back, every committed model bit for
+                    bit the old one plus the plain fused fedavg of its
+                    blobs, round 0's scores not all tied, exact launches of
+                    quantize_stack, fused_candidates, fused_agg and
+                    dequantize at D = 116,411,136, a cohort's rows bit for
+                    bit in calls of P, P / 2 and 1 (each client trains in a
+                    call of its own); ``lm_train_cost`` half the cohort's
+                    training in that loop against the per-client program
+                    vmapped (all 10 clients vmapped do not fit the card),
+                    in turns, with peak memory; ``kernel_path`` lines for
+                    the four kernels at the round's shapes
+           examples  examples/torch_quickstart.py (2 rounds, 20 writers, 3
+                    local steps) and examples/torch_serve_demo.py on the
+                    card, each in a child process: exit code 0
+           dryrun   python -m repro_torch.launch.dryrun --arch olmo-1b
+                    --shape train_4k in a child process on the CPU (256
+                    fake ranks, the 16 x 16 mesh, bf16, remat), beside the
+                    examples: no error in the record, and its matmul
+                    FLOPs a device within 10 % of 6 N T / 256 plus the
+                    terms it leaves out (remat's second forward, attention
+                    over the whole sequence: dryrun_expected_flops)
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -1240,7 +1268,11 @@ def phase_trainer_invariance(ds) -> None:
     from repro_torch.api import build_runtime
     from repro_torch.device import to_device
     from repro_torch.fl.adapter import femnist_adapter
-    from repro_torch.fl.client import flatten_stacked_updates, sample_client_batches
+    from torch.func import vmap
+
+    from repro_torch.fl.client import (
+        flatten_stacked_updates, make_one_client_fn, sample_client_batches,
+    )
     from repro_torch.kernels.client_gemm import client_gemm_kernel
 
     rt = build(ds, {"quantize_chain": True, "use_kernels": True})
@@ -1278,11 +1310,13 @@ def phase_trainer_invariance(ds) -> None:
     train_s = {form: [] for form in TRAINER_TURNS}
     for form in TRAINER_TURNS:
         adapter = femnist_adapter(width=32)
-        if form == "vmap":
-            adapter = adapter._replace(stacked_loss=None)
         rt = build_runtime(adapter, ds, {"quantize_chain": True,
                                          "use_kernels": True, "seed": 0},
                            device="cuda")
+        if form == "vmap":
+            rt._local_train = vmap(make_one_client_fn(
+                adapter, rt.cfg.local_lr, rt.cfg.momentum),
+                in_dims=(None, 0, 0))
         for _ in range(TRAINER_TURN_ROUNDS):
             rt.run_round()
         train_s[form] += [t["train"] for t in
@@ -1958,10 +1992,10 @@ def chain_digests(chain) -> list:
     return out
 
 
-def int8_replay(rt, t: int):
+def int8_replay(rt, t: int, plain_on: str = "cpu"):
     """Round t's committed model against the old model plus the plain
-    fused fedavg of the round's blobs as stored on the chain: (bit for
-    bit, the blobs' width)."""
+    fused fedavg of the round's blobs as stored on the chain, computed on
+    ``plain_on``: (bit for bit, the blobs' width)."""
     import torch
 
     from repro_torch.core.aggregation import apply_update, normalize_weights
@@ -1970,10 +2004,10 @@ def int8_replay(rt, t: int):
 
     blocks = rt.chain.updates_at_round(t)
     blobs = rt.chain.update_payloads_at_round(t, decode=False)
-    q = torch.stack([b["q"] for b in blobs]).cpu()
-    s = torch.stack([b["scales"] for b in blobs]).cpu()
+    q = torch.stack([b["q"] for b in blobs]).to(plain_on)
+    s = torch.stack([b["scales"] for b in blobs]).to(plain_on)
     w = normalize_weights(len(blocks), [b.score for b in blocks], rt.device)
-    plain = fused_agg_ref(q, s, w.cpu(), "fedavg")
+    plain = fused_agg_ref(q, s, w.to(plain_on), "fedavg")
     old = rt.chain.model_at_round(t)
     flat_old, unravel = ravel_pytree(old)
     agg = plain[:blobs[0]["d"]].to(flat_old.device)
@@ -3141,10 +3175,8 @@ def plain_chunks(fn, *arrays, nblk_args=(), lanes: int = LANE_CHUNK):
 
 
 def lm_kernel_lines(stack, q, s, w, counts) -> None:
-    """quantize_stack, fused_agg fedavg and dequantize at the LM's width:
-    each kernel against its plain version over chunks of lanes, its
-    CUDA-event time (after the counted run: these launches count nowhere),
-    the plain version's time over its chunks, and its bytes bound."""
+    """quantize_stack, fused_agg fedavg and dequantize at the LM's width
+    (``kernel_path_lines``)."""
     import torch
 
     from repro_torch.kernels.fused_agg import fused_agg_kernel, fused_agg_ref
@@ -3158,6 +3190,32 @@ def lm_kernel_lines(stack, q, s, w, counts) -> None:
     nblk = Dpad // BLOCK_D
     f32, i8 = 4, 1
     q0, s0 = q[0].contiguous(), s[0].contiguous()
+    kernel_path_lines("serve_olmo_1b", counts, (
+        ("quantize_stack", f"K = {K}", K * Dpad,
+         lambda: quantize_stack_kernel(stack), quantize_stack_ref, (stack,), (),
+         K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad, None),
+        ("fused_agg", f"fedavg, K = {K}", K * Dpad,
+         lambda: fused_agg_kernel(q, s, w),
+         lambda q_, s_: fused_agg_ref(q_, s_, w), (q, s), (1,),
+         K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32, 4 * K * Dpad,
+         None),
+        ("dequantize", "one update block", Dpad,
+         lambda: dequantize_kernel(q0, s0), dequantize_ref, (q0, s0), (1,),
+         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
+         lambda: torch.mul(q0.view(-1, BLOCK_D), s0[:, None])),
+    ))
+
+
+def kernel_path_lines(path: str, counts, cases) -> None:
+    """One ``kernel_path`` line a case (name, form, K x Dpad, kernel call,
+    plain version, its arrays, which of them count tiles on their last
+    axis, bytes, operations, one library call or None): the kernel against its
+    plain version over chunks of lanes (``plain_chunks``), its CUDA-event
+    time (after the counted run: these launches count nowhere), the plain
+    version's time over its chunks, and its bound."""
+    import torch
+
+    from repro_torch.kernels.tiling import BLOCK_D
 
     def worst(got, plain, *arrays, nblk_args=()):
         """max |got - plain| over lanes, chunk by chunk (q as ints); for a
@@ -3178,33 +3236,19 @@ def lm_kernel_lines(stack, q, s, w, counts) -> None:
         run()
         return _events_ms(run, 1)
 
-    cases = (
-        ("quantize_stack", "K = 2",
-         lambda: quantize_stack_kernel(stack), quantize_stack_ref, (stack,), (),
-         K * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * K * Dpad, None),
-        ("fused_agg", "fedavg, K = 2",
-         lambda: fused_agg_kernel(q, s, w),
-         lambda q_, s_: fused_agg_ref(q_, s_, w), (q, s), (1,),
-         K * Dpad * i8 + K * nblk * f32 + K * f32 + Dpad * f32, 4 * K * Dpad,
-         None),
-        ("dequantize", "one update block",
-         lambda: dequantize_kernel(q0, s0), dequantize_ref, (q0, s0), (1,),
-         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
-         lambda: torch.mul(q0.view(-1, BLOCK_D), s0[:, None])),
-    )
-    for name, form, fn, plain, arrays, nblk_args, nbytes, ops_, library in cases:
+    for (name, form, lanes, fn, plain, arrays, nblk_args, nbytes, ops_,
+         library) in cases:
         got = fn()
         err = worst(got, plain, *arrays, nblk_args=nblk_args)
         del got
-        check(err == 0.0, f"{name} at D = {Dpad}: max_abs_err {err}")
+        check(err == 0.0, f"{name} at {lanes} lanes: max_abs_err {err}")
         fn()
         ms = _events_ms(fn, 3)
         b_ms, b_by = bound_ms(nbytes, ops_)
-        emit(phase="kernel_path", path="serve_olmo_1b", name=name, form=form,
-             shape=[list(a.shape) for a in arrays],
-             k_x_dpad=K * Dpad if name != "dequantize" else Dpad,
-             over_2_31=(K * Dpad if name != "dequantize" else Dpad) > 2 ** 31,
-             launches=counts[name], max_abs_err=err, ms=ms,
+        emit(phase="kernel_path", path=path, name=name, form=form,
+             shape=[list(a.shape) for a in arrays], k_x_dpad=lanes,
+             over_2_31=lanes > 2 ** 31, launches=counts[name],
+             max_abs_err=err, ms=ms,
              plain_ms=plain_ms(plain, *arrays, nblk_args=nblk_args),
              library_ms=_events_ms(library, 3) if library else None,
              bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
@@ -4420,6 +4464,377 @@ def path_train_fl() -> dict:
     return counts
 
 
+# lm_round_100m: the BFLC round on launch/train.py's repro-100m LM at full
+# width and depth, 32 clients of MarkovLM rows (a dialect a client)
+LM_ROUND_DATA = dict(clients=32, rows=48, seq=256, test_rows=64)
+LM_ROUND_CFG = dict(active_proportion=0.5, k_updates=4, local_steps=4,
+                    local_batch=8, quantize_chain=True, use_kernels=True,
+                    seed=0)
+LM_ROUND_ROUNDS = 2
+LM_ROUND_DIM = 116_411_136
+LM_WARM = dict(steps=60, batch=16, lr=1e-3)   # AdamW on the pooled rows
+LM_TRAIN_TURNS = ("loop", "vmap", "loop", "vmap")
+
+
+def lm_federated(vocab: int, clients: int, rows: int, seq: int,
+                 test_rows: int, seed: int = 0):
+    """A FederatedDataset whose "images" are MarkovLM(vocab, seed=1) token
+    rows of ``seq`` tokens and whose "labels" are the next tokens: each
+    client's rows drawn under a dialect permutation of its own (non-IID
+    shards), the test rows under none."""
+    import numpy as np
+
+    from repro_torch.data import FederatedDataset, MarkovLM
+
+    lm = MarkovLM(vocab, seed=1)
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for _ in range(clients):
+        rows_ = lm.sample(rng, rows, seq + 1,
+                          dialect=rng.permutation(lm.branching))
+        images.append(rows_[:, :-1])
+        labels.append(rows_[:, 1:])
+    test = lm.sample(rng, test_rows, seq + 1)
+    return FederatedDataset(images, labels, test[:, :-1], test[:, 1:])
+
+
+def lm_warm_start(cfg, ds, steps: int, batch: int, lr: float):
+    """``steps`` AdamW steps (linear_warmup_cosine(lr, 10, steps)) of the
+    standard train step on batches of the pooled client rows, from the
+    seeded init on the card: (params, losses)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import to_device
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import Batch
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    xs, ys = ds.merged_train()
+    opt = adamw(linear_warmup_cosine(lr, 10, steps))
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    del params
+    step = make_train_step(cfg, opt, mode="standard")
+    seq = xs.shape[1]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device="cuda")[None].expand(batch, seq)
+    mask = torch.ones((batch, seq), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(1)
+    losses = []
+    for _ in range(steps):
+        idx = rng.integers(0, len(xs), batch)
+        state, metrics = step(state, Batch(
+            tokens=to_device(xs[idx], "cuda"), positions=positions,
+            targets=to_device(ys[idx], "cuda"), loss_mask=mask))
+        losses.append(metrics["loss"])
+    return state.params, [float(x) for x in losses]
+
+
+def path_lm_round_100m() -> dict:
+    """The BFLC round on an LM at full width and depth: launch/train.py's
+    lm_100m_config (12 units, d 768, vocab 8192, 116,411,136 f32 params)
+    through repro_torch.api.build_runtime(lm_adapter(cfg), ...), 32
+    clients of 48 MarkovLM(8192, seed=1) rows of 256 tokens (a dialect a
+    client), active_proportion 0.5 (P = 10, Q = 6), k = 4, 4 local steps
+    of batch 8, an int8 chain scored by committee_int8, 2 rounds from a
+    warm start (LM_WARM: 60 AdamW steps of batch 16 on the pooled rows).
+    Checks: verify(), the read-back (dequantize, quantize), each round's
+    committed model bit for bit the old model plus the plain fused fedavg
+    of its stored blobs (on the card), round 0's score matrix not all
+    tied, exactly one quantize_stack and one fused_candidates launch a
+    scored cohort (plus one quantize_stack a re-quantizing packer), one
+    fused_agg a round, k + 1 dequantize and one quantize (the read-back),
+    and a cohort's rows bit for bit in calls of P, P / 2 and 1.  Lines:
+    ``round`` (seconds and stage seconds), ``lm_train_cost`` (half the
+    cohort's training in the loop form the round uses against the
+    per-client program vmapped, in turns, with each one's peak memory),
+    ``kernel_path`` for quantize_stack and
+    fused_candidates at (P, D), fused_agg at (k, D) and dequantize."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from repro_torch.api import build_runtime
+    from repro_torch.device import to_device
+    from repro_torch.fl.adapter import lm_adapter
+    from repro_torch.fl.client import (
+        flatten_stacked_updates, make_one_client_fn, sample_client_batches,
+    )
+    from repro_torch.fl.pipeline import resolve
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.fused_agg import fused_agg_kernel, fused_agg_ref
+    from repro_torch.kernels.fused_score import (
+        fused_candidates_kernel, fused_candidates_ref,
+    )
+    from repro_torch.kernels.quantize import (
+        dequantize_kernel, dequantize_ref, quantize_stack_kernel,
+        quantize_stack_ref,
+    )
+    from repro_torch.kernels.tiling import BLOCK_D
+    from repro_torch.launch.train import lm_100m_config
+    from repro_torch.tree import ravel_pytree
+
+    path = "lm_round_100m"
+    cfg = lm_100m_config()
+    rounds, k = LM_ROUND_ROUNDS, LM_ROUND_CFG["k_updates"]
+    t0 = time.perf_counter()
+    ds = lm_federated(cfg.vocab_size, **LM_ROUND_DATA)
+    warm, losses = lm_warm_start(cfg, ds, **LM_WARM)
+    emit(phase="lm_warm_start", path=path, **LM_WARM, loss_first=losses[0],
+         loss_last=losses[-1], seconds=time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses), f"{path}: warm-start loss")
+    adapter = lm_adapter(cfg)
+    scorer = resolve("validator", "committee_int8")
+    packer = resolve("packer", "top_k_int8")
+    scores, requantized = [], []
+
+    class ScoringSpy:
+        def prepare(self, ctx):
+            scorer.prepare(ctx)
+
+        def __call__(self, ctx):
+            scorer(ctx)
+            scores.append(torch.as_tensor(ctx.cohort_scores).cpu())
+
+    def spy_packer(ctx):
+        before = launch_counts()["quantize_stack"]
+        packer(ctx)
+        requantized.append(launch_counts()["quantize_stack"] - before)
+
+    def drive():
+        t0 = time.perf_counter()
+        rt = build_runtime(adapter, ds, LM_ROUND_CFG, initial_params=warm,
+                           stages={"validator": ScoringSpy(),
+                                   "packer": spy_packer}, device="cuda")
+        emit(phase="round_setup", path=path, seconds=time.perf_counter() - t0,
+             dim=rt.chain.codec.dim, p_trainers=rt.p_trainers,
+             q_committee=rt.q_committee, k=k)
+        check(rt.chain.codec.dim == LM_ROUND_DIM, f"{path}: D")
+        run_rounds(path, rt, rounds)
+        verify(path, rt, rounds)
+        readback(path, rt, rounds)
+        for t in range(rounds):
+            same, width = int8_replay(rt, t, plain_on="cuda")
+            emit(phase="int8_replay", path=path, round=t, equal=same,
+                 width=width)
+            check(same, f"{path}: round {t}'s model block is not the old "
+                        f"model plus the plain fused fedavg of its blobs")
+        return rt
+
+    counts, rt = counted(path, drive, {})
+    want = {"quantize_stack": len(scores) + sum(requantized),
+            "fused_candidates": len(scores), "fused_agg": rounds,
+            "dequantize": k + 1, "quantize": 1}
+    emit(phase="lm_scores", path=path, cohorts=len(scores),
+         round0_scores=scores[0].tolist(),
+         distinct=len(torch.unique(scores[0])),
+         rounds_requantized=sum(requantized))
+    check({n: c for n, c in counts.items() if c} == want,
+          f"{path}: launches {counts}, want exactly {want}")
+    check(len(torch.unique(scores[0])) > 1,
+          f"{path}: round 0's scores all tie")
+
+    # a cohort's rows whole and in calls of P / 2 and 1, then the loop
+    # against the vmapped per-client program on the same cohort
+    P, rcfg = rt.p_trainers, rt.cfg
+    rng = np.random.default_rng(0)
+    batches = [sample_client_batches(rng, ds.client_images[c],
+                                     ds.client_labels[c], rcfg.local_steps,
+                                     rcfg.local_batch) for c in range(P)]
+    xs = to_device(np.stack([b[0] for b in batches]), "cuda")
+    ys = to_device(np.stack([b[1] for b in batches]), "cuda")
+    params = rt.global_params()
+
+    def train(lo, hi):
+        return flatten_stacked_updates(rt._local_train(params, xs[lo:hi],
+                                                       ys[lo:hi]))
+
+    whole = train(0, P)
+    for n in (P // 2, 1):
+        parts = torch.cat([train(i, min(P, i + n)) for i in range(0, P, n)])
+        out = {"clients": P, "call": n, "equal": same_bits(parts, whole),
+               "rows_differing": int((parts != whole).any(dim=1).sum())}
+        emit(phase="trainer_invariance", path=path, **out)
+        check(out["equal"], f"{path}: calls of {n} clients differ from one "
+                            f"call of {P}: {out}")
+        del parts
+    # the kernels' operands at the round's shapes: the scorer's (P, D)
+    # stack, the packer's k blobs, one block's read-back
+    base, _ = ravel_pytree(params)
+    D = base.numel()
+    Dpad = -(-D // BLOCK_D) * BLOCK_D
+    padded = torch.zeros((Dpad,), device="cuda")
+    padded[:D] = base
+    stack = torch.zeros((P, Dpad), device="cuda")
+    stack[:, :D] = whole
+    del whole
+    qp, sp = quantize_stack_kernel(stack)
+    blobs = rt.chain.update_payloads_at_round(rounds - 1, decode=False)
+    qk = torch.stack([b["q"] for b in blobs])
+    sk = torch.stack([b["scales"] for b in blobs])
+    wk = torch.full((k,), 1.0 / k, device="cuda")
+    q0, s0 = qk[0].contiguous(), sk[0].contiguous()
+    nblk, f32, i8 = Dpad // BLOCK_D, 4, 1
+    loop_train = rt._local_train
+    del rt, blobs
+    torch.cuda.empty_cache()
+
+    # the loop the round trains with against the per-client program
+    # vmapped, in turns, on the cohort's first P // 2 clients: a vmap of
+    # all P = 10 ran the card out of memory (73.5 GB allocated)
+    half = P // 2
+    vmapped = vmap(make_one_client_fn(adapter, rcfg.local_lr, rcfg.momentum),
+                   in_dims=(None, 0, 0))
+    forms = {"loop": lambda: loop_train(params, xs[:half], ys[:half]),
+             "vmap": lambda: vmapped(params, xs[:half], ys[:half])}
+    seconds = {form: [] for form in forms}
+    peak_gb = {form: [] for form in forms}
+    held = torch.cuda.memory_allocated() / 1e9
+    first = {}
+    for form in LM_TRAIN_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = forms[form]()
+        torch.cuda.synchronize()
+        seconds[form].append(time.perf_counter() - t0)
+        peak_gb[form].append(torch.cuda.max_memory_allocated() / 1e9)
+        first.setdefault(form, flatten_stacked_updates(rows))
+        del rows
+    emit(phase="lm_train_cost", path=path, clients=half,
+         steps=rcfg.local_steps, batch=rcfg.local_batch, seq=xs.shape[-1],
+         seconds=seconds, loop_over_vmap=min(seconds["loop"])
+         / min(seconds["vmap"]), peak_allocated_gb=peak_gb,
+         allocated_before_gb=held,
+         vmap_max_abs_diff=float((first["vmap"] - first["loop"]).abs().max()),
+         card=nvidia_smi())
+    del first, xs, ys, params, vmapped, forms, loop_train
+    torch.cuda.empty_cache()
+    kernel_path_lines(path, counts, (
+        ("quantize_stack", f"P = {P}", P * Dpad,
+         lambda: quantize_stack_kernel(stack), quantize_stack_ref, (stack,),
+         (), P * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * P * Dpad,
+         None),
+        ("fused_candidates", f"P = {P}", P * Dpad,
+         lambda: fused_candidates_kernel(padded, qp, sp),
+         lambda q_, s_, b_: fused_candidates_ref(b_, q_, s_),
+         (qp, sp, padded), (1,),
+         P * Dpad * i8 + Dpad * f32 + P * nblk * f32 + P * Dpad * f32,
+         2 * P * Dpad,
+         lambda: torch.addcmul(padded.view(1, nblk, BLOCK_D),
+                               qp.view(P, nblk, BLOCK_D),
+                               sp.view(P, nblk, 1))),
+        ("fused_agg", f"fedavg, K = {k}", k * Dpad,
+         lambda: fused_agg_kernel(qk, sk, wk),
+         lambda q_, s_: fused_agg_ref(q_, s_, wk), (qk, sk), (1,),
+         k * Dpad * i8 + k * nblk * f32 + k * f32 + Dpad * f32, 4 * k * Dpad,
+         None),
+        ("dequantize", "one update block", Dpad,
+         lambda: dequantize_kernel(q0, s0), dequantize_ref, (q0, s0), (1,),
+         Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
+         lambda: torch.mul(q0.view(-1, BLOCK_D), s0[:, None])),
+    ))
+    del stack, qp, sp, qk, sk, padded, base
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the dry run's one full-size pair, traced in a child process on fake
+# ranks while the examples run on the card
+DRYRUN_PAIR = ("olmo-1b", "train_4k")
+DRYRUN_TOLERANCE = 0.10
+EXAMPLES = (("torch_quickstart.py", "--rounds", "2", "--clients", "20",
+             "--local-steps", "3"),
+            ("torch_serve_demo.py",))
+
+
+def dryrun_expected_flops(rec: dict) -> dict:
+    """A device's matmul FLOPs of one remat train step of a dense decoder,
+    perfectly split over the mesh: 6 N T (the model's forward and
+    backward) plus the named terms the bare 6 N T leaves out, remat's
+    second forward (2 N T), attention's products over the whole sequence
+    (4 L S d a token forward, 12 L S d T forward and backward) and their
+    second forward (4 L S d T); all over the chips.  The bflc validation
+    forward (16 rows of 1024 tokens) is left out: 0.3 % here."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import SHAPES
+
+    cfg = registry.get_config(rec["arch"])
+    shape = SHAPES[rec["shape"]]
+    N, S = rec["params"], shape["seq"]
+    T = shape["batch"] * S
+    L = cfg.num_units * len(cfg.unit) + len(cfg.tail)
+    d = cfg.num_heads * cfg.resolved_head_dim
+    terms = {"model_6NT": 6 * N * T, "remat_2NT": 2 * N * T,
+             "attention_12LSdT": 12 * L * S * d * T,
+             "remat_attention_4LSdT": 4 * L * S * d * T}
+    return {name: v / rec["chips"] for name, v in terms.items()}
+
+
+def phase_examples_and_dryrun() -> None:
+    """``dryrun``: python -m repro_torch.launch.dryrun on DRYRUN_PAIR (the
+    16 x 16 fake mesh, CPU only) in a child process: its record has no
+    error, and its FLOPs a device are within DRYRUN_TOLERANCE of
+    ``dryrun_expected_flops``.  ``examples``: the torch quickstart (2
+    rounds, 20 writers, 3 local steps) and the serve demo on the card,
+    each in a child process, exit code 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cpu_env = dict(env, CUDA_VISIBLE_DEVICES="")
+    arch, shape = DRYRUN_PAIR
+    record = os.path.join(ROOT, "build", "dryrun",
+                          f"{arch}_{shape}_16-16_baseline.json")
+    if os.path.exists(record):
+        os.remove(record)
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=ROOT, env=cpu_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        for example in EXAMPLES:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", example[0]),
+                 *example[1:]], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=600)
+            emit(phase="examples", example=example[0], argv=list(example[1:]),
+                 rc=proc.returncode, seconds=time.perf_counter() - t0,
+                 tail=(proc.stdout + proc.stderr).strip().splitlines()[-6:])
+            check(proc.returncode == 0, f"examples/{example[0]} exited "
+                                        f"{proc.returncode}")
+        out, _ = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    seconds = time.perf_counter() - t_dry
+    check(dry.returncode == 0 and os.path.exists(record),
+          f"dryrun exited {dry.returncode}: {out[-2000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    expected = dryrun_expected_flops(rec)
+    ratio = rec["flops_per_device"] / sum(expected.values())
+    emit(phase="dryrun", pair=list(DRYRUN_PAIR), seconds=seconds,
+         error=rec.get("error"), mesh=rec.get("mesh"), chips=rec.get("chips"),
+         trace_s=rec.get("compile_s"),
+         flops_per_device=rec.get("flops_per_device"),
+         expected_flops_terms=expected,
+         over_expected=ratio,
+         over_6NT=rec["flops_per_device"] / expected["model_6NT"],
+         dot_bytes_per_device=rec.get("dot_bytes_per_device"),
+         collective_breakdown=rec.get("collective_breakdown"),
+         collective_counts=rec.get("collective_counts"),
+         peak_memory_per_device=rec.get("peak_memory_per_device"),
+         roofline=rec.get("roofline"))
+    check("error" not in rec, f"dryrun: {rec.get('error')}")
+    check(abs(ratio - 1) <= DRYRUN_TOLERANCE,
+          f"dryrun: {rec['flops_per_device']} FLOPs a device, "
+          f"{ratio} of the expected {sum(expected.values())}")
+
+
 def merged(intervals) -> list:
     """The union of (start, end) intervals, as sorted disjoint intervals."""
     out = []
@@ -4603,6 +5018,14 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         later[name] = run()
         emit(phase="path_seconds", path=name, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    later["lm_round_100m"] = path_lm_round_100m()
+    emit(phase="path_seconds", path="lm_round_100m",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_examples_and_dryrun()
+    emit(phase="path_seconds", path="examples_and_dryrun",
+         seconds=time.perf_counter() - t0)
     for r in rows:
         total = (sum(c[r["name"]] for c, _ in paths.values())
                  + sum(c[r["name"]] for c in later.values()))

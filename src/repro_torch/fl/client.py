@@ -1,26 +1,27 @@
 """Client-side local training, batched across clients, and committee scoring.
 
 Port of ``repro/fl/client.py``.  The round's P trainers each run momentum
-SGD from the same global model, all of them in one batched pass per step.
-The reference ``vmap``s one per-client XLA program, so a client's update
-does not depend on which or how many clients share the call.  The port
-holds the same property where the adapter gives a ``stacked_loss`` (the
-FEMNIST CNN does): its products go through ``kernels.client_gemm``, one
-fixed-order FMA chain an output on the card and one ``torch.mm`` a client
-on the CPU, and the rest of the step is elementwise or row-wise.  An
-adapter without one (``lm_adapter``) is trained by ``torch.func.vmap``
-over the per-client program, whose batched products PyTorch may round
-differently at another P.  Committee validation scores the (P updates x Q
-members) accuracy matrix: each candidate ``params + update_i`` is built
+SGD from the same global model.  The reference ``vmap``s one per-client
+XLA program, so a client's update does not depend on which or how many
+clients share the call.  The port holds the same property two ways.
+Where the adapter gives a ``stacked_loss`` (the FEMNIST CNN does), all P
+clients step in one batched pass: its products go through
+``kernels.client_gemm``, one fixed-order FMA chain an output on the card
+and one ``torch.mm`` a client on the CPU, and the rest of the step is
+elementwise or row-wise.  An adapter without one (``lm_adapter``) trains
+each client in a call of its own to the single-client program, one after
+another: every call has the same shapes whatever P is.  (A ``vmap`` of
+that program batches its products over P, and PyTorch rounds them
+differently at another P.)  Committee validation scores the (P updates x
+Q members) accuracy matrix: each candidate ``params + update_i`` is built
 once and all Q member batches run through it in one batched forward.  The
 int8 scorer does the same for the chain codec's int8 view of each update.
 
 The sharded round engine (``repro_torch.fl.sharded``) runs these same
 programs on each rank's block of the cohort: ``make_sharded_*`` build
-them once per mesh.  With a ``stacked_loss`` adapter and with the scorers
-(one candidate at a time), a rank's per-client results are the
-single-device program's on the same rows, so the gathered stacks equal
-the single-device ones.
+them once per mesh.  A rank's per-client results, trained or scored, are
+the single-device program's on the same rows, so the gathered stacks
+equal the single-device ones.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from repro_torch.device import to_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
 from repro_torch.launch.shardings import round_engine_pspecs
-from repro_torch.tree import ravel_pytree, tree_leaves, tree_map
+from repro_torch.tree import ravel_pytree, tree_leaves, tree_map, tree_stack
 
 
 def make_one_client_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0):
@@ -60,12 +61,17 @@ def make_local_train_fn(adapter: ModelAdapter, lr: float, momentum: float = 0.0)
 
     xs: (P, steps, batch, ...), ys: (P, steps, batch).  Output: the update
     tree stacked over P (update = locally trained params - global params).
-    With ``adapter.stacked_loss`` each client's row is the same bits in a
-    call of any P (see the module docstring); without it the per-client
-    program is ``vmap``ped."""
+    Each client's row is the same bits in a call of any P (see the module
+    docstring): with ``adapter.stacked_loss`` all P clients step together,
+    without it each client runs the single-client program on its own."""
     if adapter.stacked_loss is None:
-        return vmap(make_one_client_fn(adapter, lr, momentum),
-                    in_dims=(None, 0, 0))
+        one_client = make_one_client_fn(adapter, lr, momentum)
+
+        def train_each(params, xs, ys):
+            return tree_stack([one_client(params, xs[i], ys[i])
+                               for i in range(xs.shape[0])])
+
+        return train_each
 
     def train(params, xs, ys):
         P = xs.shape[0]
@@ -96,10 +102,9 @@ def make_sharded_local_train_fn(adapter: ModelAdapter, lr: float, mesh,
     the rank copies only its block of clients (split as
     ``round_engine_pspecs()["clients"]`` names) to ``mesh.device`` and
     returns that block's update tree.  The caller pads P to a multiple of
-    the mesh size.  With ``adapter.stacked_loss``, a client's row does not
-    depend on the other rows of its call, so the block's rows are the
-    single-device program's bit for bit and padded rows leave the real
-    ones unchanged; a ``vmap``ped adapter's rows may round differently."""
+    the mesh size.  A client's row does not depend on the other rows of
+    its call, so the block's rows are the single-device program's bit for
+    bit and padded rows leave the real ones unchanged."""
     batched = make_local_train_fn(adapter, lr, momentum)
     split = round_engine_pspecs()["clients"]
 

@@ -376,7 +376,7 @@ class LocalSGDTrainer:
     trainers.
 
     ``dispatch`` draws the cohort's batches from the host rng and launches
-    the vmapped training into ``ctx.train_inflight`` without waiting for
+    the cohort's training into ``ctx.train_inflight`` without waiting for
     it; ``finalize`` unstacks the updates and poisons the malicious
     trainers' (the attacks go through host numpy, so a poisoned cohort
     waits for its training there)."""

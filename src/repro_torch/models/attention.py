@@ -22,9 +22,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.config import ATTN_LOCAL, ATTN_SWA, ModelConfig
-from repro_torch.models.flash import flash_attention, pick_q_block
+from repro_torch.models.flash import (
+    flash_attention,
+    local_attention,
+    pick_q_block,
+)
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
-from repro_torch.models.shardctx import grad_like, unshard_dim, whole
+from repro_torch.models.shardctx import grad_like, is_dtensor, unshard_dim, whole
 
 DENSE_MAX = 2048     # max sequence length for the dense path
 
@@ -162,8 +166,24 @@ def attention_forward(
     pos2d = positions[0] if positions.dim() == 3 else positions
     window = cfg.sliding_window if is_windowed(mixer) else 0
     if x.shape[1] <= DENSE_MAX:
-        mask = _pair_mask(pos2d, pos2d, causal=cfg.causal, window=window)
-        out = _dense_attention(q, k, v, mask, cfg.attn_logit_softcap)
+        def attend(q_, k_, v_, q_pos, kv_pos):
+            mask = _pair_mask(q_pos, kv_pos, causal=cfg.causal, window=window)
+            return _dense_attention(q_, k_, v_, mask, cfg.attn_logit_softcap)
+
+        if (getattr(ctx, "model_size", 1) > 1 and ctx.q_spec is not None
+                and is_dtensor(q)):
+            # heads over model: each rank's rows and heads on their own
+            # (DTensor cannot flatten batch and heads both split to one
+            # product's batch; torch 2.11 refuses it)
+            k_h, v_h = k, v
+            if k.shape[2] % ctx.model_size:    # KV expanded to the H heads
+                G = cfg.num_heads // cfg.num_kv_heads
+                k_h = ctx.q(k.repeat_interleave(G, dim=2))
+                v_h = ctx.q(v.repeat_interleave(G, dim=2))
+            out = local_attention(attend, q, k_h, v_h, pos2d, pos2d, ctx.mesh,
+                                  ctx.dp, None, ctx.model_axis)
+        else:
+            out = attend(q, k, v, pos2d, pos2d)
     else:
         if cfg.attn_logit_softcap > 0:
             raise ValueError("the flash path has no logit softcap")

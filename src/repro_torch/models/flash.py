@@ -163,25 +163,35 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def _sharded(q, k, v, q_pos, kv_pos, causal, window, q_block, block_spec,
-             mesh):
-    """``FlashAttention`` on each rank's blocks of ``block_spec``'s layout.
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient: DTensor
+    views a local gradient as the global one's shape, which a transposed
+    gradient (an einsum's) cannot give."""
 
-    q and the output are split as (batch, Q blocks, heads); k and v as
-    (batch, -, heads), whole along the keys.  An input's local gradient
-    is declared split where the input is, a partial sum over an axis that
-    splits only the output (k and v over the Q-block axis), and
-    replicated over an axis that splits neither (every rank of it
-    computed the same)."""
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_attention(attend, q, k, v, q_pos, kv_pos, mesh, dp, q_axis,
+                    head_axis):
+    """``attend(q, k, v, q_pos, kv_pos)`` on each rank's blocks: q and the
+    output split as (batch over ``dp``, queries over ``q_axis``, heads
+    over ``head_axis``), k and v as (batch, -, heads), whole along the
+    keys, the positions as their rows.  An input's local gradient is
+    declared split where the input is, a partial sum over an axis that
+    splits only the output (k and v over the query axis), and replicated
+    over an axis that splits neither (every rank of it computed the
+    same).  Returns the output as a DTensor in q's layout."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     from repro_torch.launch.mesh import mesh_axis_names, mesh_axis_size
     from repro_torch.launch.shardings import P, placements, spec_axes
 
-    dp, q_axis, head_axis = tuple(block_spec)[:3]
-    if q_axis is not None and (q.shape[1] // q_block) % mesh_axis_size(
-            mesh, q_axis):
-        q_axis = None      # pick_q_block found no even split: Q blocks whole
     q_spec = P(dp, q_axis, head_axis, None)
     names = mesh_axis_names(mesh)
     out_axes = spec_axes(q_spec)
@@ -196,15 +206,32 @@ def _sharded(q, k, v, q_pos, kv_pos, causal, window, q_block, block_spec,
             p if a in axes or mesh_axis_size(mesh, a) == 1
             else Partial() if a in out_axes else Replicate()
             for a, p in zip(names, pl))
-        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+        return _ContiguousGrad.apply(
+            t.redistribute(mesh, pl).to_local(grad_placements=grad_pl))
 
     kv_spec = P(dp, None, head_axis, None)
-    out = FlashAttention.apply(
-        local(q, q_spec), local(k, kv_spec), local(v, kv_spec),
-        local(q_pos, P(dp, q_axis)), local(kv_pos, P(dp, None)), causal,
-        window, q_block)
-    return DTensor.from_local(out, mesh, placements(mesh, q_spec),
-                              run_check=False)
+    out = attend(local(q, q_spec), local(k, kv_spec), local(v, kv_spec),
+                 local(q_pos, P(dp, q_axis)), local(kv_pos, P(dp, None)))
+    # contiguous: the callers view the DTensor's heads as one dimension
+    return DTensor.from_local(out.contiguous(), mesh,
+                              placements(mesh, q_spec), run_check=False)
+
+
+def _sharded(q, k, v, q_pos, kv_pos, causal, window, q_block, block_spec,
+             mesh):
+    """``FlashAttention`` on each rank's blocks of ``block_spec``'s layout
+    (``local_attention``): batch, Q blocks and heads split as its first
+    three entries say."""
+    from repro_torch.launch.mesh import mesh_axis_size
+
+    dp, q_axis, head_axis = tuple(block_spec)[:3]
+    if q_axis is not None and (q.shape[1] // q_block) % mesh_axis_size(
+            mesh, q_axis):
+        q_axis = None      # pick_q_block found no even split: Q blocks whole
+    return local_attention(
+        lambda q_, k_, v_, qp, kp: FlashAttention.apply(
+            q_, k_, v_, qp, kp, causal, window, q_block),
+        q, k, v, q_pos, kv_pos, mesh, dp, q_axis, head_axis)
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, causal: bool, window: int,

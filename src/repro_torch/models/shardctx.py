@@ -93,6 +93,19 @@ class _GradLikeForward(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.placements)
 
 
+class _PinBothWays(torch.autograd.Function):
+    """Redistribute to ``placements``, and the cotangent to the same."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
 def grad_like(x):
     """``x``, whose cotangent is redistributed to ``x``'s own placements
     in the backward before it flows on: a matmul's rule may split the
@@ -140,7 +153,15 @@ class ShardCtx(NamedTuple):
         return x.redistribute(self.mesh, placements(self.mesh, spec))
 
     def act(self, x):
-        return self._pin(x, self.act_spec, 3)
+        """Pin a (B, S, D) activation, and its cotangent in the backward:
+        DTensor's own backward of a reduction to ``Replicate`` hands back
+        a ``Partial`` cotangent, with which the products behind it run
+        whole on every model rank."""
+        if self.act_spec is None or x.dim() != 3 or not is_dtensor(x):
+            return x
+        from repro_torch.launch.shardings import placements
+
+        return _PinBothWays.apply(x, placements(self.mesh, self.act_spec))
 
     def logits(self, x):
         return self._pin(x, self.logits_spec)

@@ -75,7 +75,7 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.models.shardctx import whole
+from repro_torch.models.shardctx import is_dtensor, whole
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
@@ -95,7 +95,8 @@ class Batch(NamedTuple):
 # ----------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, dtype):
+def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, dtype,
+               virtual_r: int = 1):
     p = {"norm1": init_norm(cfg, dtype, gen.device)}
     if spec.mixer.startswith("attn"):
         p["mixer"] = init_attention(gen, cfg, dtype)
@@ -110,14 +111,17 @@ def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, dtype):
     if spec.mlp == MLP_DENSE:
         p["mlp"] = init_mlp(gen, cfg, dtype)
     elif spec.mlp == MLP_MOE:
-        p["mlp"] = init_moe(gen, cfg, dtype)
+        p["mlp"] = init_moe(gen, cfg, dtype, virtual_r=virtual_r)
     elif spec.mlp == MLP_RWKV:
         p["mlp"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg, dtype)
     return p
 
 
-def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_model(gen: torch.Generator, cfg: ModelConfig, *,
+               virtual_r: int = 1) -> dict:
     """The full parameter tree, drawn from ``gen`` on ``gen.device``.
+    ``virtual_r`` splits each MoE expert into r slices of its d_ff
+    (``moe.virtual_factor``: fewer experts than the model axis).
 
     The reference's ``jax.random`` stream cannot be reproduced: parity runs
     carry the reference's params across (``repro_torch.convert``)."""
@@ -132,19 +136,21 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.num_units == 1:
         # one unit: its leaves with a unit axis of 1, no copy
         params["units"] = tree_map(lambda t: t[None], tuple(
-            init_layer(gen, spec, cfg, dtype) for spec in cfg.unit))
+            init_layer(gen, spec, cfg, dtype, virtual_r) for spec in cfg.unit))
     elif cfg.num_units:
         # each unit drawn in turn and copied into its row of the stacked
         # leaves: the peak is the model and one unit, not the model twice
         units = None
         for u in range(cfg.num_units):
-            unit = tuple(init_layer(gen, spec, cfg, dtype) for spec in cfg.unit)
+            unit = tuple(init_layer(gen, spec, cfg, dtype, virtual_r)
+                         for spec in cfg.unit)
             if units is None:
                 units = tree_map(lambda t: t.new_empty(
                     (cfg.num_units,) + tuple(t.shape)), unit)
             tree_map(lambda dst, src: dst[u].copy_(src), units, unit)
         params["units"] = units
-    params["tail"] = tuple(init_layer(gen, spec, cfg, dtype) for spec in cfg.tail)
+    params["tail"] = tuple(init_layer(gen, spec, cfg, dtype, virtual_r)
+                           for spec in cfg.tail)
     params["final_norm"] = init_norm(cfg, dtype, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(
@@ -172,8 +178,31 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # ----------------------------------------------------------------------------
 
 
+def _gather_rows(table, tokens: torch.Tensor):
+    """``table[tokens]`` on a mesh, as each rank's own rows of the whole
+    table: the table is gathered whole, each rank indexes it with its
+    tokens, and the result is split as the tokens are.  The table's local
+    gradient is a partial sum over the axes that split the tokens (each
+    rank saw other rows) and replicated over the others.  DTensor's own
+    rule for the backward's ``index_put`` fails on torch 2.11."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    grad_pl = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                    for p in tokens.placements)
+    local = table.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=grad_pl)
+    return DTensor.from_local(local[tokens.to_local().long()], mesh,
+                              tokens.placements, run_check=False)
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]                   # (B,S,D)
+    table = params["embed"]
+    x = (_gather_rows(table, tokens) if is_dtensor(table)
+         else table[tokens.long()])                      # (B,S,D)
     if cfg.scale_embeddings:
         # the reference rounds sqrt(d) to the activation dtype first; a
         # float32 tensor times a Python float does the same
@@ -235,7 +264,10 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
             cache_entry = {"tm": tm_state}
     else:
         raise ValueError(spec.mixer)
-    x = x + mixed
+    # the mixer's output projection leaves a Partial sum over the model
+    # axis; reduced here, or DTensor would carry it through the norm and
+    # run the whole MLP on every model rank
+    x = _pin_act(ctx, x + mixed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mlp != MLP_NONE:
         h2 = apply_norm(lp["norm2"], x, cfg)
@@ -259,9 +291,9 @@ def _kv_to_cache(cfg, spec, k, v, positions, max_len):
     B, S = k.shape[0], k.shape[1]
     L = attn_cache_len(cfg, spec.mixer, max_len)
     pos2d = positions[0] if positions.dim() == 3 else positions
-    ck = torch.zeros((B, L) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
-    cv = torch.zeros((B, L) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
-    cp = torch.full((B, L), -1, dtype=torch.int32, device=k.device)
+    ck = k.new_zeros((B, L) + tuple(k.shape[2:]))
+    cv = v.new_zeros((B, L) + tuple(v.shape[2:]))
+    cp = pos2d.new_full((B, L), -1, dtype=torch.int32)
     if S >= L:
         # keep the last L tokens; ring-buffer slot = pos % L
         k_keep, v_keep, p_keep = k[:, S - L:], v[:, S - L:], pos2d[:, S - L:]

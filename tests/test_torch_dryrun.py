@@ -1,0 +1,206 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the reference's.
+
+* ``shape_applicable``'s skips equal the reference's for every arch x
+  shape of the registry.
+* Matmul FLOPs a device: olmo-1b's smoke config in bfloat16 with remat,
+  on a (2, 4) mesh at batch 8 x 64 tokens, standard train, prefill and
+  decode.  The port traces its sharded steps on fake tensors over a fake
+  world of 8 ranks (``trace_step``); the reference compiles the same
+  steps with the same policy on the suite's 8 CPU devices and counts
+  them with ``hlo_compute_stats``.
+  - prefill: equal.
+  - train: equal but for one named term, token_ce's one-hot product in
+    the backward: XLA writes the cotangent of ``one_hot . z`` as a
+    broadcast multiply, the port's einsum backward is a (rows, 1) x
+    (1, V) product of 2 * (B * S / data) * V FLOPs (V whole).
+  - decode: the port's decode state (cache, tokens, positions, and the
+    query and output of the attention over the cache) is whole on every
+    rank by design, so its attention runs every row and head on every
+    rank (4 * B * H * hd * S * L FLOPs) and the products around it see
+    whole activations.  Held between the reference's count and the same
+    step on one device (a ``LocalMesh``), and above the reference's by at
+    least the whole-state attention's excess over its share of it.
+* ``dryrun_one`` on the 16 x 16 fake mesh (the smoke config and a small
+  shape in place of the production ones): a record with the reference's
+  keys, no ``error``, the roofline of rank 0's counts on H100 constants,
+  and a skipped pair recorded as skipped.
+"""
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import pytest
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from repro.configs import registry as jax_registry
+from repro.launch import hlo_stats as jax_hlo_stats
+from repro.launch import mesh as jax_mesh
+from repro.launch import shardings as jax_shardings
+from repro.launch import steps as jax_steps
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_model as jax_init_model
+from repro.models.transformer import Batch as JaxBatch
+from repro.optim import adamw as jax_adamw
+from repro.optim import linear_warmup_cosine as jax_schedule
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun, hlo_stats
+from repro_torch.launch.mesh import LocalMesh, make_host_mesh
+from repro_torch.launch.shardings import ShardingPolicy
+from repro_torch.launch.steps import one_device_policy
+
+ARCH, B, S, DATA, MODEL = "olmo-1b", 8, 64, 2, 4
+
+
+def _reference_dryrun_module():
+    """``repro.launch.dryrun`` imported with this process's XLA_FLAGS kept
+    (the module prepends 512 host devices for a process of its own)."""
+    jax.devices()                   # the backend exists before the import
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as ref
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
+    return ref
+
+
+def test_shape_applicable_matches_reference():
+    ref = _reference_dryrun_module()
+    assert list(dryrun.SHAPES) == list(ref.SHAPES)
+    assert dryrun.SHAPES == ref.SHAPES
+    assert registry.ARCH_IDS == jax_registry.ARCH_IDS
+    skipped = 0
+    for arch in registry.ARCH_IDS:
+        cfg, jcfg = registry.get_config(arch), jax_registry.get_config(arch)
+        for shape in dryrun.SHAPES:
+            got = dryrun.shape_applicable(cfg, shape)
+            assert got == ref.shape_applicable(jcfg, shape), (arch, shape)
+            skipped += got is not None
+    assert skipped > 0
+
+
+def _sds(shape, dtype):
+    return jax.ShapeDtypeStruct(shape, dtype)
+
+
+def _reference_flops() -> dict:
+    """hlo_compute_stats of the reference's three steps on a (2, 4) mesh."""
+    cfg = dataclasses.replace(jax_registry.smoke_config(ARCH),
+                              dtype="bfloat16", remat=True)
+    mesh = jax_mesh.make_host_mesh(DATA, MODEL)
+    pol = jax_shardings.ShardingPolicy(dp_axes=("data",), dp_sizes=(DATA,),
+                                       model_axis_size=MODEL)
+    params = jax.eval_shape(lambda: jax_init_model(jax.random.PRNGKey(0), cfg))
+    pspecs = jax_shardings.param_pspecs(cfg, params, pol)
+    psh = jax_shardings.named(mesh, pspecs)
+    rows = (B, S)
+    batch = JaxBatch(tokens=_sds(rows, jnp.int32),
+                     positions=_sds(rows, jnp.int32),
+                     targets=_sds(rows, jnp.int32),
+                     loss_mask=_sds(rows, jnp.float32))
+    bsh = jax_shardings.named(mesh, jax_shardings.batch_pspecs(
+        cfg, pol, batch_sharded=True))
+    whole = NamedSharding(mesh, P())
+    opt = jax_adamw(jax_schedule(3e-4, 100, 10_000), weight_decay=0.1)
+    state = jax_steps.TrainState(params=params,
+                                 opt_state=jax.eval_shape(opt.init, params),
+                                 step=_sds((), jnp.int32))
+    ssh = jax_steps.TrainState(
+        params=psh,
+        opt_state=jax_shardings.named(mesh, {"m": pspecs, "v": pspecs}),
+        step=whole)
+    train = jax.jit(jax_steps.make_train_step(cfg, opt, mesh, pol,
+                                              mode="standard"),
+                    in_shardings=(ssh, bsh, None),
+                    out_shardings=(ssh, whole)).lower(state, batch, None)
+    prefill = jax.jit(jax_steps.make_prefill_step(cfg, mesh, pol, max_len=S),
+                      in_shardings=(psh, bsh)).lower(params, batch)
+    cache = jax.eval_shape(lambda: jax_init_cache(cfg, B, S, jnp.bfloat16))
+    csh = jax_shardings.named(mesh, jax_shardings.cache_pspecs(
+        cfg, cache, pol, batch_sharded=True))
+    decode = jax.jit(
+        jax_steps.make_decode_step(cfg, mesh, pol, batch_sharded=True),
+        in_shardings=(psh, NamedSharding(mesh, P("data", None)),
+                      NamedSharding(mesh, P("data")), csh, None),
+    ).lower(params, _sds((B, 1), jnp.int32), _sds((B,), jnp.int32), cache,
+            None)
+    return {kind: jax_hlo_stats.hlo_compute_stats(
+                lowered.compile().as_text())["dot_flops"]
+            for kind, lowered in (("train", train), ("prefill", prefill),
+                                  ("decode", decode))}
+
+
+@pytest.fixture(scope="module")
+def flops():
+    cfg = registry.smoke_config(ARCH).replace(dtype="bfloat16", remat=True)
+    pol = ShardingPolicy(dp_axes=("data",), dp_sizes=(DATA,),
+                         model_axis_size=MODEL)
+    port = {}
+    with dryrun.fake_world(DATA * MODEL):
+        mesh = make_host_mesh(DATA, MODEL, device="cpu")
+        for kind in ("train", "prefill", "decode"):
+            traced = dryrun.trace_step(cfg, mesh, pol, kind=kind, seq=S,
+                                       batch=B, mode="standard")
+            port[kind] = hlo_stats.compute_stats(traced["record"])["dot_flops"]
+    one_device = dryrun.trace_step(cfg, LocalMesh(), one_device_policy(),
+                                   kind="decode", seq=S, batch=B)
+    return {"cfg": cfg, "port": port, "reference": _reference_flops(),
+            "one_device": hlo_stats.compute_stats(
+                one_device["record"])["dot_flops"]}
+
+
+def test_prefill_flops_match_reference(flops):
+    assert flops["port"]["prefill"] == flops["reference"]["prefill"]
+
+
+def test_train_flops_match_reference_but_the_one_hot_backward(flops):
+    cfg = flops["cfg"]
+    one_hot_backward = 2 * (B * S // DATA) * cfg.vocab_size
+    assert flops["port"]["train"] == \
+        flops["reference"]["train"] + one_hot_backward
+
+
+def test_decode_flops_between_reference_and_one_device(flops):
+    cfg = flops["cfg"]
+    attention = (4 * B * cfg.num_heads * cfg.resolved_head_dim * S
+                 * cfg.num_units * len(cfg.unit))
+    ref, port, one = (flops["reference"]["decode"], flops["port"]["decode"],
+                      flops["one_device"])
+    assert ref < port < one
+    # the whole-state attention alone exceeds the reference's share of it
+    assert port - ref >= attention * (1 - 1 / (DATA * MODEL))
+
+
+def test_dryrun_one_record(monkeypatch, tmp_path):
+    small = {"train_4k": dict(kind="train", seq=64, batch=16),
+             "decode_32k": dict(kind="decode", seq=64, batch=16)}
+    monkeypatch.setattr(dryrun, "SHAPES", small)
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(dryrun.registry, "get_config",
+                        lambda arch, **kw: registry.smoke_config(arch)
+                        .replace(**kw))
+    ref = _reference_dryrun_module()
+    rec = dryrun.dryrun_one(ARCH, "train_4k", mode="standard", verbose=False)
+    assert "error" not in rec, rec.get("traceback")
+    keys = {"arch", "shape", "mesh", "mode", "tag", "chips", "compile_s",
+            "flops_per_device", "flops_cost_analysis", "bytes_per_device",
+            "dot_bytes_per_device", "collective_bytes_per_device",
+            "collective_breakdown", "collective_counts",
+            "peak_memory_per_device", "argument_size", "output_size",
+            "roofline", "params", "active_params"}
+    assert set(rec) == keys
+    assert (rec["mesh"], rec["chips"], rec["flops_cost_analysis"]) == \
+        ("16x16", 256, None)
+    assert rec["flops_per_device"] > 0 and rec["peak_memory_per_device"] > 0
+    assert set(rec["collective_breakdown"]) <= {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all"}
+    assert rec["roofline"] == hlo_stats.roofline_terms(
+        flops=rec["flops_per_device"], bytes_accessed=rec["bytes_per_device"],
+        collective_bytes=rec["collective_bytes_per_device"], chips=1)
+    assert os.path.exists(tmp_path / "olmo-1b_train_4k_16-16_baseline.json")
+    hubert = dryrun.dryrun_one("hubert-xlarge", "decode_32k", verbose=False)
+    assert hubert["skipped"] == ref.shape_applicable(
+        jax_registry.get_config("hubert-xlarge"), "decode_32k")

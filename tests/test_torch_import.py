@@ -82,8 +82,48 @@ def test_sharded_modules_load_no_jax_alone(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.launch.hlo_stats",
+                                    "repro_torch.launch.dryrun"])
+def test_dryrun_modules_load_no_jax_alone(module):
+    """The dry run's modules, each imported on its own in a fresh
+    process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT_FILE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("example", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_every_reference_example_has_a_torch_example():
+    ref = {p.name for p in (ROOT / "examples").glob("*.py")
+           if not p.name.startswith("torch_")}
+    assert {p.name for p in EXAMPLES} == {f"torch_{n}" for n in ref}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_load_no_jax(path):
+    """Each torch example, imported (not run) in a fresh process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_FILE, str(path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_source_imports_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + EXAMPLES)
     assert len(files) > 20
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
