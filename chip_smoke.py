@@ -159,6 +159,19 @@ Phases, one JSON line each:
                     without: 20 standard and 10 bflc steps each, every
                     loss and every param / moment leaf bit for bit, s/step
                     of both
+           decode_mesh_world2  olmo-1b at full width and depth (seed
+                    7) on two gloo ranks sharing the card, the decode
+                    state sharded as cache_pspecs lays it out: (1, 2), 4
+                    rows of 64 prompt tokens, KV heads over model; (2, 1),
+                    1 row of 1,024 (max_len 2,048), the cache's sequence
+                    over data and the softmax merged across the ranks; 16
+                    tokens a row.  Against the same steps on the LocalMesh
+                    in this process: tokens equal, logits within 1e-4,
+                    each rank's K / V bytes half of the whole, every leaf
+                    its spec's share (the slot positions are whole over
+                    model where the KV heads take it, so at (1, 2) the
+                    cache is a little over half); the decode tick's host
+                    ms on world 2 and on one rank (``decode_mesh`` lines)
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -305,7 +318,14 @@ Phases, one JSON line each:
                     examples: no error in the record, and its matmul
                     FLOPs a device within 10 % of 6 N T / 256 plus the
                     terms it leaves out (remat's second forward, attention
-                    over the whole sequence: dryrun_expected_flops)
+                    over the whole sequence: dryrun_expected_flops); at
+                    the same time olmo-1b x decode_32k (batch 128, KV
+                    heads over model) and gemma3-4b x long_500k (batch 1,
+                    the sequence over data and model), the decode state
+                    sharded by cache_pspecs: no error; olmo-1b's FLOPs
+                    within 10 % of 2 N B / 256 plus the attention over
+                    the cache (dryrun_decode_expected_flops), its peak
+                    under 5 GB a device
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -2678,6 +2698,226 @@ def path_moe_ep_world2() -> None:
           "moe_ep_world2: world 1 dropped")
 
 
+# the decode state on a mesh: olmo-1b whole on two gloo ranks sharing the
+# card; run -> ((data, model), rows, prompt tokens, max_len)
+DECODE_MESH_ARCH = "olmo-1b"
+DECODE_MESH_RUNS = {"heads_over_model": ((1, 2), 4, 64, 128),
+                    "seq_over_data": ((2, 1), 1, 1024, 2048)}
+DECODE_MESH_GEN = 16         # tokens a row: the prefill's and 15 ticks
+DECODE_MESH_ATOL = 1e-4      # logits against the LocalMesh steps
+
+
+def place(tree, mesh, specs):
+    """``tree`` (the same on every rank) as DTensors laid out by ``specs``,
+    each rank keeping a copy of its own block: no collective (gloo's
+    broadcast and scatter of CUDA tensors are not relied on)."""
+    from repro_torch.launch.shardings import map_specs, placements
+    from repro_torch.models.shardctx import as_dtensor, local_part
+
+    def one(spec, t):
+        if t is None:
+            return None
+        pl = placements(mesh, spec)
+        return as_dtensor(local_part(t, mesh, pl).clone(), mesh, pl, t.shape)
+
+    return map_specs(one, specs, tree)
+
+
+def decode_mesh_inputs(cfg, rows: int, seq: int):
+    """The prompt rows (seed 11) and their positions."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(seq, dtype=np.int32)[None], (rows, seq))
+    return prompt, np.ascontiguousarray(pos)
+
+
+def decode_mesh_run(cfg, params, mesh, pol, run: str, device) -> dict:
+    """``run``'s prefill and DECODE_MESH_GEN - 1 greedy decode ticks
+    through the port's steps on ``mesh`` (a DeviceMesh: params, prompt,
+    tokens and positions placed by their specs; the LocalMesh: plain
+    tensors): the tokens, every token's logits (whole), each tick's host
+    ms (synchronized), and the cache's bytes on this rank and whole."""
+    import torch
+
+    from repro_torch.launch.shardings import (
+        batch_pspecs,
+        decode_pspecs,
+        param_pspecs,
+    )
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.shardctx import is_dtensor, whole
+    from repro_torch.models.transformer import Batch
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    _, rows, seq, max_len = DECODE_MESH_RUNS[run]
+    bs = rows > 1
+    local = getattr(mesh, "is_local", False)
+    prompt, pos = decode_mesh_inputs(cfg, rows, seq)
+    batch = Batch(tokens=torch.from_numpy(prompt).to(device),
+                  positions=torch.from_numpy(pos).to(device))
+    dspec = decode_pspecs(cfg, pol, batch_sharded=bs)
+    if not local:
+        params = place(params, mesh, param_pspecs(cfg, params, pol))
+        batch = place(batch, mesh, batch_pspecs(cfg, pol, batch_sharded=bs)
+                      ._replace(embeds=None, embed_mask=None, targets=None,
+                                loss_mask=None))
+    prefill = make_prefill_step(cfg, mesh, pol, max_len=max_len,
+                                batch_sharded=bs)
+    decode = make_decode_step(cfg, mesh, pol, batch_sharded=bs)
+    ticks = []
+    with torch.no_grad():
+        logits, cache = prefill(params, batch)
+        tok = torch.argmax(whole(logits)[:, -1], -1).to(torch.int32)[:, None]
+        toks, seen = [tok], [whole(logits)[:, -1]]
+        leaves = tree_leaves(cache)
+        for i in range(DECODE_MESH_GEN - 1):
+            p = torch.full((rows,), seq + i, dtype=torch.int32, device=device)
+            t_in = tok if local else place(tok, mesh, dspec.tokens)
+            p_in = p if local else place(p, mesh, dspec.position)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = decode(params, t_in, p_in, cache)
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            tok = whole(tok)
+            toks.append(tok)
+            seen.append(whole(logits)[:, -1])
+    nbytes = lambda t: t.numel() * t.element_size()
+    kv = [t for path, t in tree_paths(cache) if path[-1] in ("k", "v")]
+    return dict(
+        tokens=torch.cat(toks, 1).cpu().numpy(),
+        logits=torch.stack(seen).float().cpu().numpy(),
+        tick_ms=ticks,
+        cache_bytes=sum(nbytes(t.to_local() if is_dtensor(t) else t)
+                        for t in leaves),
+        cache_whole_bytes=sum(nbytes(t) for t in leaves),
+        kv_bytes=sum(nbytes(t.to_local() if is_dtensor(t) else t)
+                     for t in kv),
+        kv_whole_bytes=sum(nbytes(t) for t in kv),
+        # every leaf its spec's share: the whole over the sizes of the
+        # mesh dimensions that split it (positions are whole over model
+        # where the KV heads take it)
+        leaves_shared=None if local else all(
+            is_dtensor(t) and nbytes(t.to_local()) * math.prod(
+                n for n, p in zip(t.device_mesh.shape, t.placements)
+                if p.is_shard()) == nbytes(t) for t in leaves),
+        cache_in_place=all(a is b for a, b in zip(leaves,
+                                                  tree_leaves(cache))))
+
+
+def decode_mesh_rank() -> dict:
+    """A rank of decode_mesh_world2: olmo-1b at full width and depth from
+    seed 7 on cuda:0, then every run of DECODE_MESH_RUNS on its
+    make_host_mesh (fsdp off: the parameters split over model only), the
+    functional all-gathers staged through host memory
+    (``stage_functional_all_gather``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import (
+        make_host_mesh,
+        stage_functional_all_gather,
+    )
+    from repro_torch.launch.shardings import ShardingPolicy
+    from repro_torch.models import init_model
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stage_functional_all_gather()
+    cfg = registry.get_config(DECODE_MESH_ARCH)
+    params = init_model(torch.Generator(device=dev).manual_seed(7), cfg)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    for run, ((data, model), *_) in DECODE_MESH_RUNS.items():
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(data, model, device="cuda")
+        pol = ShardingPolicy(dp_axes=("data",), dp_sizes=(data,),
+                             model_axis_size=model, fsdp=False)
+        out[run] = decode_mesh_run(cfg, params, mesh, pol, run, dev)
+        out[run]["coordinate"] = list(mesh.get_coordinate())
+        out[run]["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+    return out
+
+
+def path_decode_mesh_world2() -> None:
+    """olmo-1b at full width and depth on two gloo ranks sharing the card
+    (``spawn_world``), each run of DECODE_MESH_RUNS against the same steps
+    on the LocalMesh in this process: (a) (1, 2), 4 rows of 64 prompt
+    tokens, KV heads over model (8 a rank); (b) (2, 1), 1 row of 1,024,
+    max_len 2,048, the cache's sequence over data and the attention's
+    softmax merged across the ranks.  Tokens equal, logits within
+    DECODE_MESH_ATOL, each rank's K / V bytes half of the whole and every
+    cache leaf its spec's share (all of the cache half at (2, 1)); the
+    decode tick's host ms on world 2 and on one rank.  No kernel of the
+    port's runs (the decode is PyTorch's matmuls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.hostdevices import spawn_world
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.launch.steps import one_device_policy
+    from repro_torch.models import init_model
+
+    dev = torch.device("cuda:0")
+    cfg = registry.get_config(DECODE_MESH_ARCH)
+    params = init_model(torch.Generator(device=dev).manual_seed(7), cfg)
+    one = {}
+    for run in DECODE_MESH_RUNS:
+        t0 = time.perf_counter()
+        one[run] = decode_mesh_run(cfg, params, LocalMesh(),
+                                   one_device_policy(), run, dev)
+        one[run]["seconds"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_world(2, decode_mesh_rank, backend="gloo", timeout=900.0)
+    for run, ((data, model), rows, seq, max_len) in DECODE_MESH_RUNS.items():
+        want = one[run]
+        for r in ranks:
+            got = r[run]
+            err = float(np.abs(got["logits"] - want["logits"]).max())
+            top2 = np.sort(want["logits"], axis=-1)[..., -2:]
+            emit(phase="decode_mesh", path="decode_mesh_world2", run=run,
+                 rank=r["rank"], backend=r["backend"], mesh=[data, model],
+                 coordinate=got["coordinate"], arch=DECODE_MESH_ARCH,
+                 rows=rows, prompt=seq, max_len=max_len,
+                 generated=DECODE_MESH_GEN,
+                 tokens_equal=bool((got["tokens"] == want["tokens"]).all()),
+                 max_abs_logit_err=err,
+                 min_top2_margin=float((top2[..., 1] - top2[..., 0]).min()),
+                 cache_bytes=got["cache_bytes"],
+                 cache_whole_bytes=got["cache_whole_bytes"],
+                 kv_bytes=got["kv_bytes"], kv_whole_bytes=got["kv_whole_bytes"],
+                 leaves_shared=got["leaves_shared"],
+                 cache_in_place=got["cache_in_place"],
+                 tick_host_ms=float(np.median(got["tick_ms"])),
+                 tick_host_ms_all=got["tick_ms"],
+                 one_rank_tick_host_ms=float(np.median(want["tick_ms"])),
+                 one_rank_cache_bytes=want["cache_bytes"],
+                 seconds=got["seconds"], one_rank_seconds=want["seconds"])
+            check(bool((got["tokens"] == want["tokens"]).all()),
+                  f"decode_mesh_world2 {run} rank {r['rank']}: tokens "
+                  f"{got['tokens'].tolist()} against {want['tokens'].tolist()}")
+            check(err <= DECODE_MESH_ATOL,
+                  f"decode_mesh_world2 {run} rank {r['rank']}: logits off by "
+                  f"{err}")
+            check(2 * got["kv_bytes"] == got["kv_whole_bytes"]
+                  == want["kv_bytes"] and got["leaves_shared"]
+                  and got["cache_in_place"]
+                  and got["cache_whole_bytes"] == want["cache_bytes"]
+                  and (2 * got["cache_bytes"] == got["cache_whole_bytes"]
+                       or run == "heads_over_model"),
+                  f"decode_mesh_world2 {run} rank {r['rank']}: cache bytes "
+                  f"{got['cache_bytes']} of {got['cache_whole_bytes']}, K / V "
+                  f"{got['kv_bytes']} of {got['kv_whole_bytes']}")
+
+
 class StepClock:
     """``run_lm``'s ``on_step``: the losses (read at the end), the last
     state, and s/step over the steps after LM_MESH_WARM (the device
@@ -4745,7 +4985,12 @@ def path_lm_round_100m() -> dict:
 # the dry run's one full-size pair, traced in a child process on fake
 # ranks while the examples run on the card
 DRYRUN_PAIR = ("olmo-1b", "train_4k")
+# the decode records: the KV heads over model (batch 128), and a batch of
+# one with the sequence over data and model
+DRYRUN_DECODE = (("olmo-1b", "decode_32k"), ("gemma3-4b", "long_500k"))
 DRYRUN_TOLERANCE = 0.10
+DECODE_PEAK_BYTES = 5e9      # olmo-1b decode_32k a device: 549.8 GB / 256
+                             # of cache and the model's share
 EXAMPLES = (("torch_quickstart.py", "--rounds", "2", "--clients", "20",
              "--local-steps", "3"),
             ("torch_serve_demo.py",))
@@ -4774,25 +5019,53 @@ def dryrun_expected_flops(rec: dict) -> dict:
     return {name: v / rec["chips"] for name, v in terms.items()}
 
 
+def dryrun_decode_expected_flops(rec: dict) -> dict:
+    """A device's matmul FLOPs of one decode step, perfectly split over
+    the mesh: every weight once a row (2 N B, the tied head's product
+    included) and the new token's attention over each layer's cache (4 B
+    H hd L_cache: its scores and its weighted sum); both over the
+    chips."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import SHAPES
+    from repro_torch.models.cache import attn_cache_len
+
+    cfg = registry.get_config(rec["arch"])
+    shape = SHAPES[rec["shape"]]
+    B, S = shape["batch"], shape["seq"]
+    slots = sum(attn_cache_len(cfg, spec.mixer, S)
+                for spec in cfg.all_layers() if spec.mixer.startswith("attn"))
+    terms = {"weights_2NB": 2 * rec["active_params"] * B,
+             "attention_4BHdL": 4 * B * cfg.num_heads * cfg.resolved_head_dim
+             * slots}
+    return {name: v / rec["chips"] for name, v in terms.items()}
+
+
 def phase_examples_and_dryrun() -> None:
-    """``dryrun``: python -m repro_torch.launch.dryrun on DRYRUN_PAIR (the
-    16 x 16 fake mesh, CPU only) in a child process: its record has no
-    error, and its FLOPs a device are within DRYRUN_TOLERANCE of
-    ``dryrun_expected_flops``.  ``examples``: the torch quickstart (2
-    rounds, 20 writers, 3 local steps) and the serve demo on the card,
-    each in a child process, exit code 0."""
+    """``dryrun``: python -m repro_torch.launch.dryrun on DRYRUN_PAIR and
+    on each of DRYRUN_DECODE (the 16 x 16 fake mesh, CPU only), each in a
+    child process, all at once: no record has an error; the train step's
+    FLOPs a device are within DRYRUN_TOLERANCE of
+    ``dryrun_expected_flops``; olmo-1b's decode_32k (the decode state
+    sharded by cache_pspecs) within DRYRUN_TOLERANCE of
+    ``dryrun_decode_expected_flops``, its peak under DECODE_PEAK_BYTES.
+    ``examples``: the torch quickstart (2 rounds, 20 writers, 3 local
+    steps) and the serve demo on the card, each in a child process, exit
+    code 0."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cpu_env = dict(env, CUDA_VISIBLE_DEVICES="")
-    arch, shape = DRYRUN_PAIR
-    record = os.path.join(ROOT, "build", "dryrun",
-                          f"{arch}_{shape}_16-16_baseline.json")
-    if os.path.exists(record):
-        os.remove(record)
+    pairs = (DRYRUN_PAIR,) + DRYRUN_DECODE
+    records = [os.path.join(ROOT, "build", "dryrun",
+                            f"{arch}_{shape}_16-16_baseline.json")
+               for arch, shape in pairs]
+    for record in records:
+        if os.path.exists(record):
+            os.remove(record)
     t_dry = time.perf_counter()
-    dry = subprocess.Popen(
+    dry = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape], cwd=ROOT, env=cpu_env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        stderr=subprocess.STDOUT, text=True) for arch, shape in pairs]
+    outs = []
     try:
         for example in EXAMPLES:
             t0 = time.perf_counter()
@@ -4805,34 +5078,50 @@ def phase_examples_and_dryrun() -> None:
                  tail=(proc.stdout + proc.stderr).strip().splitlines()[-6:])
             check(proc.returncode == 0, f"examples/{example[0]} exited "
                                         f"{proc.returncode}")
-        out, _ = dry.communicate(timeout=600)
+        for child in dry:
+            outs.append(child.communicate(timeout=600)[0])
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
+        for child in dry:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     seconds = time.perf_counter() - t_dry
-    check(dry.returncode == 0 and os.path.exists(record),
-          f"dryrun exited {dry.returncode}: {out[-2000:]}")
-    with open(record) as f:
-        rec = json.load(f)
-    expected = dryrun_expected_flops(rec)
-    ratio = rec["flops_per_device"] / sum(expected.values())
-    emit(phase="dryrun", pair=list(DRYRUN_PAIR), seconds=seconds,
-         error=rec.get("error"), mesh=rec.get("mesh"), chips=rec.get("chips"),
-         trace_s=rec.get("compile_s"),
-         flops_per_device=rec.get("flops_per_device"),
-         expected_flops_terms=expected,
-         over_expected=ratio,
-         over_6NT=rec["flops_per_device"] / expected["model_6NT"],
-         dot_bytes_per_device=rec.get("dot_bytes_per_device"),
-         collective_breakdown=rec.get("collective_breakdown"),
-         collective_counts=rec.get("collective_counts"),
-         peak_memory_per_device=rec.get("peak_memory_per_device"),
-         roofline=rec.get("roofline"))
-    check("error" not in rec, f"dryrun: {rec.get('error')}")
-    check(abs(ratio - 1) <= DRYRUN_TOLERANCE,
-          f"dryrun: {rec['flops_per_device']} FLOPs a device, "
-          f"{ratio} of the expected {sum(expected.values())}")
+    for (arch, shape), child, out, record in zip(pairs, dry, outs, records):
+        check(child.returncode == 0 and os.path.exists(record),
+              f"dryrun {arch} x {shape} exited {child.returncode}: "
+              f"{out[-2000:]}")
+        with open(record) as f:
+            rec = json.load(f)
+        check("error" not in rec, f"dryrun {arch} x {shape}: "
+                                  f"{rec.get('error')}")
+        decode = (arch, shape) != DRYRUN_PAIR
+        expected = (dryrun_decode_expected_flops(rec) if decode
+                    else dryrun_expected_flops(rec))
+        ratio = rec["flops_per_device"] / sum(expected.values())
+        emit(phase="dryrun", pair=[arch, shape], seconds=seconds,
+             error=rec.get("error"), mesh=rec.get("mesh"),
+             chips=rec.get("chips"), trace_s=rec.get("compile_s"),
+             flops_per_device=rec.get("flops_per_device"),
+             expected_flops_terms=expected,
+             over_expected=ratio,
+             dot_bytes_per_device=rec.get("dot_bytes_per_device"),
+             collective_breakdown=rec.get("collective_breakdown"),
+             collective_counts=rec.get("collective_counts"),
+             peak_memory_per_device=rec.get("peak_memory_per_device"),
+             argument_size=rec.get("argument_size"),
+             output_size=rec.get("output_size"),
+             roofline=rec.get("roofline"),
+             **({} if decode else
+                {"over_6NT": rec["flops_per_device"]
+                 / expected["model_6NT"]}))
+        if decode and arch != "olmo-1b":
+            continue
+        check(abs(ratio - 1) <= DRYRUN_TOLERANCE,
+              f"dryrun {arch} x {shape}: {rec['flops_per_device']} FLOPs a "
+              f"device, {ratio} of the expected {sum(expected.values())}")
+        check(not decode or rec["peak_memory_per_device"] <= DECODE_PEAK_BYTES,
+              f"dryrun {arch} x {shape}: peak "
+              f"{rec['peak_memory_per_device']} bytes a device")
 
 
 def merged(intervals) -> list:
@@ -4986,7 +5275,8 @@ def main(argv) -> int:
     emit(phase="path_seconds", path="sharded_world2",
          seconds=time.perf_counter() - t0)
     for name, run in (("moe_ep_world2", path_moe_ep_world2),
-                      ("lm_mesh_world1", path_lm_mesh_world1)):
+                      ("lm_mesh_world1", path_lm_mesh_world1),
+                      ("decode_mesh_world2", path_decode_mesh_world2)):
         t0 = time.perf_counter()
         later[name], _ = counted(name, run, {})
         check(not any(later[name].values()), f"{name}: launches {later[name]}")

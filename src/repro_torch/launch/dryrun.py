@@ -28,9 +28,13 @@ the value differs in kind or is null:
   XLA's temporary buffers); ``argument_size`` / ``output_size``: the
   bytes of the step's inputs / outputs on the rank.
 
-Decode caches, tokens and positions are plain tensors every rank holds
-whole (``launch/steps.py``), so a decode record counts the whole cache on
-every rank.
+A decode step takes its tokens, positions (M-RoPE's too) and cache as
+the reference's ``in_shardings`` lay them out (``decode_pspecs``,
+``cache_pspecs``): each rank holds and counts its own block of the
+cache, built from local zeros (``init_cache`` with the mesh).  Where a
+cache dimension does not split evenly, torch gives the first ranks the
+extra rows and XLA pads every block to the largest: rank 0's block is
+the same size in both.
 
 Usage (records go to ``build/dryrun/``):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
@@ -57,6 +61,7 @@ from repro_torch.launch.mesh import make_production_mesh, mesh_axis_size
 from repro_torch.launch.shardings import (
     ShardingPolicy,
     batch_pspecs,
+    decode_pspecs,
     distribute,
     param_pspecs,
 )
@@ -70,6 +75,7 @@ from repro_torch.launch.steps import (
 from repro_torch.models import forward, init_cache, init_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models.shardctx import full_dtensor
 from repro_torch.models.moe import virtual_factor
 from repro_torch.models.transformer import Batch
 from repro_torch.optim import adamw, linear_warmup_cosine
@@ -109,19 +115,32 @@ def fake_world(n: int):
         dist.destroy_process_group()
 
 
-def make_inputs(cfg: ModelConfig, kind: str, seq: int, batch: int):
+def make_inputs(cfg: ModelConfig, kind: str, seq: int, batch: int,
+                mesh=None, pol: Optional[ShardingPolicy] = None):
     """Stand-ins for a step's model inputs (call under a fake mode): a
     ``Batch`` for train / prefill, else (tokens, position, cache,
-    mrope_position) for decode."""
+    mrope_position) for decode; on a DeviceMesh (with its policy) those
+    are DTensors laid out by ``decode_pspecs`` / ``cache_pspecs`` (batch
+    1: the batch unsharded), each rank's block made from local zeros."""
     B, S = batch, seq
     dt = torch_dtype(cfg.dtype)
     i32 = torch.int32
     if kind in ("train", "prefill"):
         return model_batch(cfg, B, S)
-    tokens = torch.zeros((B, 1), dtype=i32)
-    position = torch.zeros((B,), dtype=i32)
-    cache = init_cache(cfg, B, S, dt)
-    mrope = torch.zeros((3, B, 1), dtype=i32) if cfg.rope == "mrope" else None
+    cache = init_cache(cfg, B, S, dt, mesh=mesh, pol=pol,
+                       batch_sharded=B > 1)
+    if mesh is None or getattr(mesh, "is_local", False):
+        def zeros(shape, spec):
+            return torch.zeros(shape, dtype=i32)
+    else:
+        def zeros(shape, spec):
+            return full_dtensor(shape, 0, i32, "cpu", mesh, spec)
+    specs = (decode_pspecs(cfg, pol, batch_sharded=B > 1) if pol is not None
+             else None)
+    tokens = zeros((B, 1), specs and specs.tokens)
+    position = zeros((B,), specs and specs.position)
+    mrope = (zeros((3, B, 1), specs and specs.mrope_position)
+             if cfg.rope == "mrope" else None)
     return tokens, position, cache, mrope
 
 
@@ -195,7 +214,7 @@ def trace_step(cfg: ModelConfig, mesh, pol: ShardingPolicy, *, kind: str,
         else:
             step = make_decode_step(cfg, mesh, pol,
                                     batch_sharded=batch > 1)
-            args = (params,) + make_inputs(cfg, kind, seq, batch)
+            args = (params,) + make_inputs(cfg, kind, seq, batch, mesh, pol)
     t0 = time.perf_counter()
     with fake.recording() as record:
         record.hold(args)

@@ -215,6 +215,42 @@ def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
     return _from_host(out, x) if _staged(group, x) else out
 
 
+_STAGED_GATHER = {}
+
+
+def _staged_all_gather(input: torch.Tensor, group_size: int, group_name):
+    """The functional all-gather (``_c10d_functional.all_gather_into_tensor``)
+    through host memory: the blocks gathered along dim 0 on the group's
+    CPU side, then copied back to ``input``'s device."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    group = _resolve_process_group(group_name)
+    host = input.detach().to("cpu").contiguous()
+    out = host.new_empty((group_size * host.shape[0],) + tuple(host.shape[1:]))
+    dist.all_gather_into_tensor(out, host, group=group)
+    return out.to(input.device)
+
+
+def stage_functional_all_gather(device_type: str = "cuda") -> None:
+    """Route the functional all-gather of ``device_type`` tensors (what a
+    DTensor's redistribution to ``Replicate`` and ``full_tensor`` issue)
+    through host memory, in this process, from now on.
+
+    For ranks that share one card on a gloo group (NCCL refuses two ranks
+    on one GPU): on torch 2.11 gloo's functional all-gather of CUDA
+    tensors ends the process with SIGSEGV, where its all-reduce and
+    reduce-scatter, and c10d's in-place all-gather, run (PERF.md §6).
+    The group must be gloo's; the op runs on its CPU side."""
+    if device_type in _STAGED_GATHER:
+        return
+    if dist.get_backend() != "gloo":
+        raise ValueError("the staged all-gather is for a gloo process group")
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _staged_all_gather,
+             device_type.upper())
+    _STAGED_GATHER[device_type] = lib
+
+
 # ----------------------------------------------------------------------------
 # the round mesh
 # ----------------------------------------------------------------------------

@@ -15,7 +15,8 @@ Baseline policy (the reference's):
   experts / vocab;
 * FSDP over ``data`` (+``pod``): the other big matrix dim;
 * batch over the data axes; batch 1 shards the KV-cache sequence axis
-  instead.
+  instead (``cache_pspecs``; the decode step's tokens, positions and
+  logits: ``decode_pspecs``).
 
 Rules are (parent-context, leaf-name)-keyed, applied over the param tree;
 leaves under the stacked ``units`` get a leading ``None`` axis.
@@ -29,7 +30,7 @@ gather by it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any, Optional, Tuple
+from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Tuple
 
 if TYPE_CHECKING:   # the models package imports this module
     from repro_torch.models.config import ModelConfig
@@ -207,14 +208,17 @@ def batch_pspecs(cfg: ModelConfig, pol: ShardingPolicy, *, batch_sharded: bool):
     )
 
 
-def cache_pspecs(cfg: ModelConfig, cache, pol: ShardingPolicy,
-                 *, batch_sharded: bool):
-    """Specs for the decode cache tree.
+def cache_leaf_specs(cfg: ModelConfig, pol: ShardingPolicy,
+                     *, batch_sharded: bool) -> dict:
+    """Spec of each decode-cache leaf of one layer, by leaf name (a leaf
+    under the stacked ``units`` takes a leading None besides).
 
     attn k/v (B, L, Kv, hd): batch over dp; kv-heads over model when
     divisible by the model axis, else the sequence axis takes the model
     axis.  batch=1: sequence over data (+ model when kv heads don't
-    shard)."""
+    shard).  Mamba conv (B, dc-1, din) and ssm (B, din, ds): d_inner over
+    model; RWKV wkv (B, H, dh, dh): heads over model when they divide it;
+    token shifts (B, D): batch only."""
     M = pol.model_axis
     msize = pol.model_axis_size
     dp = pol.dp_axes if batch_sharded else None
@@ -226,22 +230,29 @@ def cache_pspecs(cfg: ModelConfig, cache, pol: ShardingPolicy,
         seq_axes = M if not kv_over_model else None
     else:
         seq_axes = ("data", M) if not kv_over_model else ("data",)
+    kv = P(dp, seq_axes, M if kv_over_model else None, None)
+    return {
+        "k": kv,
+        "v": kv,
+        "pos": P(dp, seq_axes),
+        "conv": P(dp, None, M),
+        "ssm": P(dp, M, None),
+        "shift": P(dp, None),
+        "wkv": P(dp, M if h_over_model else None, None, None),
+    }
+
+
+def cache_pspecs(cfg: ModelConfig, cache, pol: ShardingPolicy,
+                 *, batch_sharded: bool):
+    """Specs for the decode cache tree: ``cache_leaf_specs`` by leaf
+    name, a leading None under ``units``; any other leaf replicated."""
+    by_name = cache_leaf_specs(cfg, pol, batch_sharded=batch_sharded)
 
     def leaf_spec(names, leaf):
-        name = names[-1]
         lead = (None,) if "units" in names else ()
-        if name in ("k", "v"):
-            return P(*lead, dp, seq_axes, M if kv_over_model else None, None)
-        if name == "pos":
-            return P(*lead, dp, seq_axes)
-        if name == "conv":
-            return P(*lead, dp, None, M)
-        if name == "ssm":
-            return P(*lead, dp, M, None)
-        if name == "shift":
-            return P(*lead, dp, None)
-        if name == "wkv":
-            return P(*lead, dp, M if h_over_model else None, None, None)
+        spec = by_name.get(names[-1])
+        if spec is not None:
+            return P(*lead, *spec)
         base = len(leaf.shape) - len(lead)
         return P(*lead, *([None] * base))
 
@@ -254,6 +265,29 @@ def cache_pspecs(cfg: ModelConfig, cache, pol: ShardingPolicy,
         return leaf_spec(names, tree)
 
     return walk(cache, ())
+
+
+class DecodeSpecs(NamedTuple):
+    """The decode step's other inputs and outputs (the reference dry
+    run's ``in_shardings`` / ``out_shardings``)."""
+
+    tokens: P                      # (B, 1)
+    position: P                    # (B,)
+    mrope_position: Optional[P]    # (3, B, 1); None without M-RoPE
+    next_token: P                  # (B, 1)
+    logits: P                      # (B, 1, V)
+
+
+def decode_pspecs(cfg: ModelConfig, pol: ShardingPolicy,
+                  *, batch_sharded: bool) -> DecodeSpecs:
+    dp = pol.dp_axes if batch_sharded else None
+    return DecodeSpecs(
+        tokens=P(dp, None),
+        position=P(dp),
+        mrope_position=P(None, dp, None) if cfg.rope == "mrope" else None,
+        next_token=P(dp, None),
+        logits=P(dp, None, pol.model_axis),
+    )
 
 
 # ----------------------------------------------------------------------------

@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.launch.mesh import LocalMesh
-from repro_torch.launch.shardings import ShardingPolicy
+from repro_torch.launch.shardings import ShardingPolicy, cache_leaf_specs
 from repro_torch.models import decode_step as model_decode_step
 from repro_torch.models import forward
 from repro_torch.models import prefill as model_prefill
@@ -49,6 +49,7 @@ from repro_torch.models.moe import MoEShardingCtx
 from repro_torch.models.shardctx import (
     ShardCtx,
     is_dtensor,
+    keep_dims,
     make_shard_ctx,
     replicate,
     whole,
@@ -87,6 +88,7 @@ def make_moe_ctx(cfg: ModelConfig, mesh, pol: ShardingPolicy,
         num_kv_heads=cfg.num_kv_heads, num_heads=cfg.num_heads,
         seq_parallel=pol.seq_parallel_acts and batch_sharded,
         act_shard_d=pol.act_shard_d and batch_sharded,
+        cache_specs=cache_leaf_specs(cfg, pol, batch_sharded=batch_sharded),
     )
 
 
@@ -323,6 +325,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
                       pol: Optional[ShardingPolicy] = None,
                       max_len: Optional[int] = None, *,
                       batch_sharded: bool = True):
+    """``prefill_step(params, batch) -> (logits (B, 1, V), cache)``.  On a
+    DeviceMesh the cache is DTensors laid out by ``cache_pspecs(...,
+    batch_sharded=batch_sharded)``, each rank holding its own blocks."""
     if max_len is None:
         raise TypeError("make_prefill_step needs max_len")
     mesh, pol = _mesh_pol(mesh, pol)
@@ -344,7 +349,12 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
     the serving hot loop only needs the argmax token.  The cache is
     updated in place and returned.  An M-RoPE model takes its (3, B, 1)
     positions as ``mrope_position`` (default: ``position`` on all three
-    streams)."""
+    streams).  On a DeviceMesh the cache is taken and returned laid out by
+    ``cache_pspecs(..., batch_sharded=batch_sharded)`` (``init_cache``
+    with the mesh, or the prefill step's); tokens and positions may be
+    plain tensors every rank holds or DTensors by ``decode_pspecs``, and
+    the next token comes back by ``decode_pspecs`` (batch over the data
+    axes), the logits vocabulary-split over model."""
     mesh, pol = _mesh_pol(mesh, pol)
     ctx = make_moe_ctx(cfg, mesh, pol, batch_sharded=batch_sharded)
 
@@ -353,7 +363,13 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
             params, cfg, tokens, position, cache, ctx,
             mrope_position=mrope_position)
         with ctx.scope():
-            next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            last = logits[:, -1, :]
+            if is_dtensor(last):
+                # the vocabulary whole on each rank of a row (DTensor's own
+                # argmax over a split dimension fails on a batch of one)
+                last = last.redistribute(last.device_mesh,
+                                         keep_dims(last.placements, {0: 0}))
+            next_token = torch.argmax(last, dim=-1).to(torch.int32)
         if return_logits:
             return next_token[:, None], logits, new_cache
         return next_token[:, None], new_cache

@@ -28,7 +28,18 @@ from repro_torch.models.flash import (
     pick_q_block,
 )
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
-from repro_torch.models.shardctx import grad_like, is_dtensor, unshard_dim, whole
+from repro_torch.models.shardctx import (
+    all_reducer,
+    as_dtensor,
+    grad_like,
+    is_dtensor,
+    keep_dims,
+    local_groups,
+    local_part,
+    shard_range,
+    softmax_merge,
+    unshard_dim,
+)
 
 DENSE_MAX = 2048     # max sequence length for the dense path
 
@@ -213,6 +224,61 @@ def attention_forward(
     return out
 
 
+def _rotate_decode(q, k, position, mrope_position, cfg: ModelConfig):
+    """The new token's Q and K rotated by its position (an M-RoPE model by
+    ``mrope_position`` when given, else the position on all three
+    streams)."""
+    if cfg.rope == "mrope":
+        rp = (mrope_position if mrope_position is not None
+              else position[None, :, None].expand(3, position.shape[0], 1))
+        q = apply_mrope(q, rp, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, rp, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope != "none":
+        q = apply_rope(q, position[:, None], cfg.rope_theta)
+        k = apply_rope(k, position[:, None], cfg.rope_theta)
+    return q, k
+
+
+def _merged_attention(q, k, v, mask, softcap: float, reduce) -> torch.Tensor:
+    """``_dense_attention`` over keys split across ranks: this rank's
+    partial softmax over its slots, joined by ``shardctx.softmax_merge``
+    (``reduce`` all-reduces over the ranks that split the keys)."""
+    B, Sq, H, Dh = q.shape
+    Kv = k.shape[2]
+    qg = (q.to(torch.float32) * (Dh ** -0.5)).reshape(B, Sq, Kv, H // Kv, Dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+    if scores.shape[-1]:
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        e = torch.exp(scores - m)
+        l = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgqs,bskd->bkgqd", e, v.to(torch.float32))
+    else:                  # a rank that holds no slot of the cache
+        m = scores.new_full(scores.shape[:-1] + (1,), NEG_INF)
+        l = torch.zeros_like(m)
+        o = m.new_zeros(scores.shape[:-1] + (Dh,))
+    out = softmax_merge(m, l, o, reduce)                  # (B, Kv, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _write_slot(cache, new, rows, local_slot, n_local: int, whole_len: bool):
+    """``cache[rows, local_slot] = new`` for the rows whose slot lies in
+    this rank's block of ``n_local`` slots (all of them when the block is
+    the whole sequence); the other rows keep their values."""
+    if whole_len:
+        cache[rows, local_slot] = new
+        return
+    if not n_local:
+        return
+    hit = (local_slot >= 0) & (local_slot < n_local)
+    idx = local_slot.clamp(0, n_local - 1)
+    keep = cache[rows, idx]
+    cache[rows, idx] = torch.where(
+        hit.reshape(hit.shape + (1,) * (keep.dim() - 1)), new, keep)
+
+
 def attention_decode(
     params: dict,
     x: torch.Tensor,            # (B,1,D)
@@ -233,16 +299,20 @@ def attention_decode(
     use a ring buffer: slot = position % Sc.  An M-RoPE model rotates by
     ``mrope_position`` when it is given, else by the position on all three
     streams.
+
+    A cache of DTensors (a DeviceMesh; ``launch.shardings.cache_pspecs``)
+    is read and written as a local map: each rank takes its rows and KV
+    heads of the new token's Q / K / V, writes them into its block only
+    when the slot ``position % Sc`` falls in it, and attends over its
+    slots; a sequence split over ranks joins the partial softmaxes with
+    ``shardctx.softmax_merge`` (the reference's "small psums").
     """
     q, k, v = _project_qkv(params, x, cfg)
-    if cfg.rope == "mrope":
-        rp = (mrope_position if mrope_position is not None
-              else position[None, :, None].expand(3, position.shape[0], 1))
-        q = apply_mrope(q, rp, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, rp, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.rope != "none":
-        q = apply_rope(q, position[:, None], cfg.rope_theta)
-        k = apply_rope(k, position[:, None], cfg.rope_theta)
+    if is_dtensor(cache_k):
+        out = _decode_local_map(q, k, v, position, cache_k, cache_v,
+                                cache_pos, cfg, mixer, mrope_position)
+        return out @ params["wo"], cache_k, cache_v, cache_pos
+    q, k = _rotate_decode(q, k, position, mrope_position, cfg)
 
     Sc = cache_k.shape[1]
     window = cfg.sliding_window if is_windowed(mixer) else 0
@@ -251,15 +321,51 @@ def attention_decode(
     slot = (position % Sc).long()
 
     b_idx = torch.arange(x.shape[0], device=x.device)
-    cache_k[b_idx, slot] = whole(k[:, 0]).to(cache_k.dtype)
-    cache_v[b_idx, slot] = whole(v[:, 0]).to(cache_v.dtype)
+    cache_k[b_idx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[b_idx, slot] = v[:, 0].to(cache_v.dtype)
     cache_pos[b_idx, slot] = position.to(cache_pos.dtype)
 
     q_pos = position[:, None]                       # (B,1)
     mask = _pair_mask(q_pos, cache_pos, causal=cfg.causal, window=window)
-    # the cache is whole on every rank: so is the one query it attends
-    out = _dense_attention(whole(q), cache_k, cache_v, mask,
-                           cfg.attn_logit_softcap)
+    out = _dense_attention(q, cache_k, cache_v, mask, cfg.attn_logit_softcap)
     B = out.shape[0]
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, cache_k, cache_v, cache_pos
+
+
+def _decode_local_map(q, k, v, position, cache_k, cache_v, cache_pos,
+                      cfg: ModelConfig, mixer: str, mrope_position):
+    """``attention_decode``'s body on each rank's blocks of a DTensor
+    cache (batch over the data axes, and KV heads or the sequence over
+    model / data, as its placements say).  Returns the attention output
+    (B, 1, H * Dh) as a DTensor: rows as the cache's, heads as its KV
+    heads."""
+    mesh = cache_k.device_mesh
+    pl = tuple(cache_k.placements)
+    B, Sc = cache_k.shape[0], cache_k.shape[1]
+    H, Dh = q.shape[2], q.shape[3]
+    rows_heads = keep_dims(pl, {0: 0, 2: 2})
+    q_l, k_l, v_l = (local_part(t, mesh, rows_heads) for t in (q, k, v))
+    pos_l = local_part(position, mesh, keep_dims(pl, {0: 0}))
+    mrope_l = (None if mrope_position is None else
+               local_part(mrope_position, mesh, keep_dims(pl, {0: 1})))
+    q_l, k_l = _rotate_decode(q_l, k_l, pos_l, mrope_l, cfg)
+
+    ck, cv, cp = cache_k.to_local(), cache_v.to_local(), cache_pos.to_local()
+    s0, n = shard_range(mesh, pl, 1, Sc)
+    slot = (pos_l % Sc).long() - s0
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    for cache, new in ((ck, k_l[:, 0].to(ck.dtype)), (cv, v_l[:, 0].to(cv.dtype)),
+                       (cp, pos_l.to(cp.dtype))):
+        _write_slot(cache, new, rows, slot, n, n == Sc)
+
+    window = cfg.sliding_window if is_windowed(mixer) else 0
+    mask = _pair_mask(pos_l[:, None], cp, causal=cfg.causal, window=window)
+    groups = local_groups(mesh, pl, 1)
+    if groups:
+        out = _merged_attention(q_l, ck, cv, mask, cfg.attn_logit_softcap,
+                                all_reducer(groups))
+    else:
+        out = _dense_attention(q_l, ck, cv, mask, cfg.attn_logit_softcap)
+    return as_dtensor(out.reshape(out.shape[0], 1, -1), mesh, rows_heads,
+                      (B, 1, H * Dh))

@@ -22,6 +22,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import is_windowed
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.shardctx import is_dtensor, local_part, shard_range
 from repro_torch.tree import tree_map
 
 
@@ -51,7 +52,23 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device="cpu") -> dict:
+               device="cpu", *, mesh=None, pol=None,
+               batch_sharded: bool = True) -> dict:
+    """A fresh decode cache (zeros, slot positions -1).  With a
+    ``DeviceMesh`` (and its ``ShardingPolicy``) every leaf is a DTensor
+    laid out by ``cache_pspecs(..., batch_sharded=batch_sharded)``, each
+    rank allocating only its own block."""
+    if mesh is not None and not getattr(mesh, "is_local", False):
+        from repro_torch.launch.shardings import cache_pspecs, map_specs
+        from repro_torch.models.shardctx import full_dtensor
+
+        shapes = init_cache(cfg, batch, max_len, dtype, "meta")
+        return map_specs(
+            lambda spec, t: full_dtensor(
+                tuple(t.shape), -1 if t.dtype == torch.int32 else 0,
+                t.dtype, device, mesh, spec),
+            cache_pspecs(cfg, shapes, pol, batch_sharded=batch_sharded),
+            shapes)
     unit = tuple(
         init_layer_cache(cfg, spec, batch, max_len, dtype, device)
         for spec in cfg.unit
@@ -77,10 +94,19 @@ def insert_slot_cache(cache: dict, slot_cache: dict, b: int) -> dict:
     barrier on the other slots.  Unit leaves carry the stacked
     ``(num_units, B, ...)`` layout (batch axis 1); tail leaves are plain
     ``(B, ...)`` (batch axis 0).
+
+    On a mesh (DTensor leaves) the write is shard-local: only the ranks
+    whose block holds row ``b`` write, each its own slots or heads of the
+    request's row (the slot cache is first laid out as the batched
+    cache's row: whole over the data axes, its slots or heads split as
+    the batched cache's).
     """
 
     def ins(axis):
         def f(big, small):
+            if is_dtensor(big):
+                _insert_local(big, small, b, axis)
+                return big
             big.narrow(axis, b, small.shape[axis]).copy_(small)
             return big
         return f
@@ -89,3 +115,18 @@ def insert_slot_cache(cache: dict, slot_cache: dict, b: int) -> dict:
         "units": tree_map(ins(1), cache["units"], slot_cache["units"]),
         "tail": tree_map(ins(0), cache["tail"], slot_cache["tail"]),
     }
+
+
+def _insert_local(big, small, b: int, axis: int) -> None:
+    """``insert_slot_cache`` on one DTensor leaf: the request's row in the
+    leaf's layout but whole over the batch, copied by the ranks that own
+    row ``b``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = big.device_mesh, tuple(big.placements)
+    row_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == axis
+                   else p for p in pl)
+    row = local_part(small, mesh, row_pl)
+    b0, n = shard_range(mesh, pl, axis, big.shape[axis])
+    if b0 <= b < b0 + n:
+        big.to_local().narrow(axis, b - b0, row.shape[axis]).copy_(row)

@@ -28,6 +28,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, normal
+from repro_torch.models.shardctx import (
+    as_dtensor,
+    is_dtensor,
+    keep_dims,
+    local_part,
+)
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -105,10 +111,23 @@ def _scan_chunk(A, h0, u, dt, Bm, Cm):
     return h, torch.stack(ys, dim=1)                       # (B,L,din)
 
 
-def mamba_forward(params, x, cfg: ModelConfig, state=None):
+def _causal_conv(u_pad, w, b, S: int):
+    """The depthwise causal conv over ``u_pad`` (B, S + dc - 1, din), the
+    taps in order, then SiLU, in float32."""
+    conv = sum(u_pad[:, i:i + S, :] * w[i][None, None]
+               for i in range(w.shape[0]))
+    return F.silu(conv + b).to(torch.float32)
+
+
+def mamba_forward(params, x, cfg: ModelConfig, state=None, layout=None):
     """x: (B,S,D) -> (out, new_state).
 
-    state: None or dict(conv (B,dc-1,din), ssm (B,din,ds))."""
+    state: None or dict(conv (B,dc-1,din), ssm (B,din,ds)).  ``layout``
+    (a prefill on a DeviceMesh): (mesh, the conv state's placements, the
+    ssm state's), and the mixer runs on each rank's rows and channels as
+    ``mamba_step`` does (``_mamba_forward_local``), from a zero state."""
+    if layout is not None:
+        return _mamba_forward_local(params, x, cfg, *layout)
     B, S, D = x.shape
     din = cfg.mamba_d_inner
     ds = cfg.mamba_d_state
@@ -123,11 +142,7 @@ def mamba_forward(params, x, cfg: ModelConfig, state=None):
                 torch.zeros((B, din, ds), dtype=torch.float32, device=x.device))
     # causal depthwise conv over time
     u_pad = torch.cat([conv_prev, u], dim=1)               # (B,S+dc-1,din)
-    conv = sum(
-        u_pad[:, i:i + S, :] * params["conv_w"][i][None, None]
-        for i in range(dc)
-    )
-    u_act = F.silu(conv + params["conv_b"]).to(torch.float32)
+    u_act = _causal_conv(u_pad, params["conv_w"], params["conv_b"], S)
 
     dt, Bm, Cm = _ssm_inputs(params, u_act.to(x.dtype), cfg)
     A = -torch.exp(params["A_log"])                        # (din,ds)
@@ -143,10 +158,48 @@ def mamba_forward(params, x, cfg: ModelConfig, state=None):
     return out, new_state
 
 
+def _mamba_forward_local(params, x, cfg: ModelConfig, mesh, conv_pl, ssm_pl):
+    """``mamba_forward`` from a zero state, the conv and the scan on each
+    rank's rows and d_inner channels (``conv_pl``: the conv state's
+    placements, (B, dc-1, din)), so the final state comes out in the
+    cache's layout, each rank holding its own block; the projections
+    between them are DTensor products."""
+    B, S, _ = x.shape
+    din, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    xz = x @ params["in_proj"]
+    u, z = torch.chunk(xz, 2, dim=-1)                      # (B,S,din)
+    rows_ch = keep_dims(conv_pl, {0: 0, 2: 2})             # (B, S, din)
+    rows = keep_dims(conv_pl, {0: 0})                      # (B, S, ds)
+    ch = keep_dims(conv_pl, {2: 0})                        # (din, ...)
+    u_l = local_part(u, mesh, rows_ch)
+    u_pad = torch.cat([u_l.new_zeros((u_l.shape[0], dc - 1, u_l.shape[2])),
+                       u_l], dim=1)
+    u_act = _causal_conv(u_pad, local_part(params["conv_w"], mesh,
+                                           keep_dims(conv_pl, {2: 1})),
+                         local_part(params["conv_b"], mesh, ch), S)
+    dt, Bm, Cm = _ssm_inputs(
+        params, as_dtensor(u_act, mesh, rows_ch, (B, S, din)).to(x.dtype), cfg)
+    A = -torch.exp(local_part(params["A_log"], mesh, ch))
+    h0 = u_act.new_zeros((u_act.shape[0], u_act.shape[2], ds))
+    h_final, y = _scan_chunk(A, h0, u_act, local_part(dt, mesh, rows_ch),
+                             local_part(Bm, mesh, rows),
+                             local_part(Cm, mesh, rows))
+    y = y + u_act * local_part(params["D"], mesh, ch).to(torch.float32)
+    y = as_dtensor(y.to(x.dtype), mesh, rows_ch, (B, S, din))
+    out = (y * F.silu(z)) @ params["out_proj"]
+    conv = u_pad[:, S:S + dc - 1, :] if dc > 1 else u_pad[:, :0]
+    return out, {"conv": as_dtensor(conv.contiguous(), mesh, conv_pl,
+                                    (B, dc - 1, din)),
+                 "ssm": as_dtensor(h_final, mesh, ssm_pl, (B, din, ds))}
+
+
 def mamba_step(params, x, cfg: ModelConfig, state):
-    """Single-token decode.  x: (B,1,D)."""
+    """Single-token decode.  x: (B,1,D).  A state of DTensors (a
+    DeviceMesh) is stepped as a local map (``_mamba_step_local``)."""
     xz = x[:, 0] @ params["in_proj"]
     u, z = torch.chunk(xz, 2, dim=-1)                      # (B,din)
+    if is_dtensor(state["conv"]):
+        return _mamba_step_local(params, x, cfg, state, u, z)
 
     conv_prev = state["conv"]                              # (B,dc-1,din)
     window = torch.cat([conv_prev, u[:, None]], dim=1)     # (B,dc,din)
@@ -159,6 +212,42 @@ def mamba_step(params, x, cfg: ModelConfig, state):
     y = y + u_act * params["D"].to(torch.float32)
     out = (y.to(x.dtype) * F.silu(z))[:, None] @ params["out_proj"]
     return out, {"conv": window[:, 1:], "ssm": h}
+
+
+def _mamba_step_local(params, x, cfg: ModelConfig, state, u, z):
+    """``mamba_step`` on a state laid out as ``cache_pspecs`` says (rows
+    over the data axes, d_inner over model): the causal conv and the SSM
+    update run on each rank's rows and channels, with ``in_proj``'s u,
+    dt and the per-channel parameters taken in the same split (a
+    parameter laid out otherwise is redistributed, never the state); the
+    projections between them are DTensor products.  The new state is
+    each rank's own block."""
+    conv_s, ssm_s = state["conv"], state["ssm"]
+    mesh, cpl = conv_s.device_mesh, tuple(conv_s.placements)
+    B, din = conv_s.shape[0], conv_s.shape[2]
+    rows_ch = keep_dims(cpl, {0: 0, 2: 1})                 # (B, din)
+    rows = keep_dims(cpl, {0: 0})                          # (B, ds)
+    ch = keep_dims(cpl, {2: 0})                            # (din, ...)
+    u_l = local_part(u, mesh, rows_ch)
+    window = torch.cat([conv_s.to_local(), u_l[:, None]], dim=1)
+    conv = torch.einsum("bcd,cd->bd", window,
+                        local_part(params["conv_w"], mesh,
+                                   keep_dims(cpl, {2: 1})))
+    u_act = F.silu(conv + local_part(params["conv_b"], mesh, ch)).to(
+        torch.float32)
+
+    u_act_d = as_dtensor(u_act, mesh, rows_ch, (B, din))
+    dt, Bm, Cm = _ssm_inputs(params, u_act_d[:, None].to(x.dtype), cfg)
+    A = -torch.exp(local_part(params["A_log"], mesh, ch))
+    h, y = _ssm_step(ssm_s.to_local(), (
+        u_act, local_part(dt[:, 0], mesh, rows_ch),
+        local_part(Bm[:, 0], mesh, rows), local_part(Cm[:, 0], mesh, rows)), A)
+    y = y + u_act * local_part(params["D"], mesh, ch).to(torch.float32)
+    y = as_dtensor(y.to(x.dtype), mesh, rows_ch, (B, din))
+    out = (y * F.silu(z))[:, None] @ params["out_proj"]
+    return out, {"conv": as_dtensor(window[:, 1:], mesh, cpl, conv_s.shape),
+                 "ssm": as_dtensor(h, mesh, tuple(ssm_s.placements),
+                                   ssm_s.shape)}
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype, device="cpu") -> dict:

@@ -23,6 +23,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, normal
+from repro_torch.models.shardctx import (
+    as_dtensor,
+    is_dtensor,
+    keep_dims,
+    local_part,
+)
 
 CHUNK = 64
 LOG_CLAMP = 30.0
@@ -213,11 +219,25 @@ def rwkv_time_mix_forward(params, x, cfg: ModelConfig, state=None):
 
 
 def rwkv_time_mix_step(params, x, cfg: ModelConfig, state):
-    """One-token decode.  x: (B, 1, D).  Returns (out, new_state)."""
+    """One-token decode.  x: (B, 1, D).  Returns (out, new_state).  A
+    ``wkv`` state that is a DTensor (a DeviceMesh) is stepped on each
+    rank's rows and heads of it (``cache_pspecs``: heads over model when
+    they divide it), r / k / v / w and ``u`` taken in the same split."""
     B, _, D = x.shape
     H = D // cfg.rwkv_head_dim
     r, k, v, g, logw, u = _projections(params, x, state["shift"], cfg)
-    y, wkv = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, state["wkv"])
+    wkv0 = state["wkv"]
+    if is_dtensor(wkv0):
+        mesh, pl = wkv0.device_mesh, tuple(wkv0.placements)
+        rows_heads = keep_dims(pl, {0: 0, 1: 1})            # (B, H, dh)
+        y, wkv = _wkv_step(*(local_part(t[:, 0], mesh, rows_heads)
+                             for t in (r, k, v, logw)),
+                           local_part(u, mesh, keep_dims(pl, {1: 0})),
+                           wkv0.to_local())
+        y = as_dtensor(y, mesh, rows_heads, (B, H, cfg.rwkv_head_dim))
+        wkv = as_dtensor(wkv, mesh, pl, wkv0.shape)
+    else:
+        y, wkv = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, wkv0)
     y = _group_norm(params, y.reshape(B, 1, D), H)
     out = (y.to(x.dtype) * g) @ params["wo"]
     return out, {"shift": x[:, -1, :], "wkv": wkv}

@@ -13,7 +13,11 @@ make_moe_ctx``) pins activations and logits to its layout, gives the MoE
 layers their mesh (so ``moe_impl="auto"`` takes the expert-parallel
 path) and, on a DeviceMesh, runs the model under DTensor's
 ``implicit_replication``; without one the model runs as on one device,
-its MoE layers dense.
+its MoE layers dense.  On a DeviceMesh the decode cache is DTensors
+laid out by ``launch.shardings.cache_pspecs``: the prefill builds each
+rank's block from its own K / V and states (``_kv_to_cache_local``,
+the Mamba mixer's local map) and the decode step writes each rank's
+block in place.
 
 Unit parameters keep the reference's stacked layout (every unit leaf has
 a leading ``num_units`` axis; ``tail`` is a tuple), so the port's
@@ -75,7 +79,13 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.models.shardctx import is_dtensor, whole
+from repro_torch.models.shardctx import (
+    as_dtensor,
+    is_dtensor,
+    keep_dims,
+    local_part,
+    shard_range,
+)
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
@@ -250,18 +260,21 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
                 lp["mixer"], h, positions, cfg, spec.mixer, return_kv=True,
                 ctx=ctx)
             cache_entry = _kv_to_cache(cfg, spec, krot, vrot, positions,
-                                       max_len)
+                                       max_len, ctx)
         else:
             mixed = attention_forward(lp["mixer"], h, positions, cfg,
                                       spec.mixer, ctx=ctx)
     elif spec.mixer == "mamba":
-        mixed, state = mamba_mod.mamba_forward(lp["mixer"], h, cfg)
+        mixed, state = mamba_mod.mamba_forward(
+            lp["mixer"], h, cfg,
+            layout=_state_layout(ctx, h, ("conv", "ssm"))
+            if collect_cache else None)
         if collect_cache:
-            cache_entry = state
+            cache_entry = _state_to_cache(ctx, state)
     elif spec.mixer == "rwkv6":
         mixed, tm_state = rwkv_mod.rwkv_time_mix_forward(lp["mixer"], h, cfg)
         if collect_cache:
-            cache_entry = {"tm": tm_state}
+            cache_entry = {"tm": _state_to_cache(ctx, tm_state)}
     else:
         raise ValueError(spec.mixer)
     # the mixer's output projection leaves a Partial sum over the model
@@ -280,14 +293,16 @@ def apply_layer_forward(lp: dict, spec: LayerSpec, x: torch.Tensor,
             y, cm_state = rwkv_mod.rwkv_channel_mix_forward(lp["mlp"], h2, cfg)
             x = x + y
             if cache_entry is not None:
-                cache_entry["cm"] = cm_state
+                cache_entry["cm"] = _state_to_cache(ctx, cm_state)
     return x, aux, cache_entry
 
 
-def _kv_to_cache(cfg, spec, k, v, positions, max_len):
-    """Pack prefill K/V (B,S,Kv,hd) into a decode cache entry (plain
-    tensors: on a mesh, K / V are gathered whole)."""
-    k, v, positions = whole(k), whole(v), whole(positions)
+def _kv_to_cache(cfg, spec, k, v, positions, max_len, ctx=None):
+    """Pack prefill K/V (B,S,Kv,hd) into a decode cache entry.  DTensor
+    K / V (a DeviceMesh) are packed as the context's cache layout says
+    (``_kv_to_cache_local``)."""
+    if is_dtensor(k) and getattr(ctx, "cache_specs", None) is not None:
+        return _kv_to_cache_local(cfg, spec, k, v, positions, max_len, ctx)
     B, S = k.shape[0], k.shape[1]
     L = attn_cache_len(cfg, spec.mixer, max_len)
     pos2d = positions[0] if positions.dim() == 3 else positions
@@ -309,10 +324,89 @@ def _kv_to_cache(cfg, spec, k, v, positions, max_len):
     return {"k": ck, "v": cv, "pos": cp}
 
 
+def _kv_to_cache_local(cfg, spec, k, v, positions, max_len, ctx):
+    """``_kv_to_cache`` as a local map: each rank builds its own block of
+    the cache (its rows, KV heads and slots, by ``ctx.cache_specs``) from
+    its rows and heads of K / V, and the blocks make the DTensor cache.
+    A token whose ring slot lies in another rank's block is written to a
+    spare row that is dropped."""
+    from repro_torch.launch.shardings import placements
+
+    mesh = ctx.mesh
+    kpl = placements(mesh, ctx.cache_specs["k"])
+    ppl = placements(mesh, ctx.cache_specs["pos"])
+    B, S, Kv, hd = k.shape
+    L = attn_cache_len(cfg, spec.mixer, max_len)
+    rows_heads = keep_dims(kpl, {0: 0, 2: 2})
+    k_l, v_l = local_part(k, mesh, rows_heads), local_part(v, mesh, rows_heads)
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    p_l = local_part(pos2d, mesh, keep_dims(kpl, {0: 0}))
+    s0, n = shard_range(mesh, kpl, 1, L)
+    Bl = k_l.shape[0]
+    if S >= L:
+        k_keep, v_keep, p_keep = k_l[:, S - L:], v_l[:, S - L:], p_l[:, S - L:]
+        local = (p_keep % L).long() - s0
+        slots = torch.where((local >= 0) & (local < n), local,
+                            torch.full_like(local, n))
+        ck = k_l.new_zeros((Bl, n + 1) + tuple(k_l.shape[2:]))
+        cv = v_l.new_zeros((Bl, n + 1) + tuple(v_l.shape[2:]))
+        cp = p_l.new_full((Bl, n + 1), -1, dtype=torch.int32)
+        b_idx = torch.arange(Bl, device=k_l.device)[:, None]
+        ck[b_idx, slots] = k_keep
+        cv[b_idx, slots] = v_keep
+        cp[b_idx, slots] = p_keep.to(torch.int32)
+        ck, cv, cp = (t[:, :n].contiguous() for t in (ck, cv, cp))
+    else:
+        # token j sits in slot j: this rank's slots [s0, s0 + n)
+        m = max(0, min(S, s0 + n) - s0)
+        ck = k_l.new_zeros((Bl, n) + tuple(k_l.shape[2:]))
+        cv = v_l.new_zeros((Bl, n) + tuple(v_l.shape[2:]))
+        cp = p_l.new_full((Bl, n), -1, dtype=torch.int32)
+        ck[:, :m] = k_l[:, s0:s0 + m]
+        cv[:, :m] = v_l[:, s0:s0 + m]
+        cp[:, :m] = p_l[:, s0:s0 + m].to(torch.int32)
+    return {"k": as_dtensor(ck, mesh, kpl, (B, L, Kv, hd)),
+            "v": as_dtensor(cv, mesh, kpl, (B, L, Kv, hd)),
+            "pos": as_dtensor(cp, mesh, ppl, (B, L))}
+
+
+def _state_layout(ctx, x, names):
+    """(mesh, placements of each named state leaf) of the context's cache
+    layout when ``x`` is a DTensor (a prefill on a DeviceMesh), else
+    None."""
+    specs = getattr(ctx, "cache_specs", None)
+    if specs is None or not is_dtensor(x):
+        return None
+    from repro_torch.launch.shardings import placements
+
+    return (ctx.mesh,) + tuple(placements(ctx.mesh, specs[n]) for n in names)
+
+
+def _state_to_cache(ctx, state: dict) -> dict:
+    """A recurrent state's leaves as cache leaves: DTensors in the
+    context's cache layout (the Mamba / RWKV mixers compute them there;
+    a leaf that is not is redistributed)."""
+    specs = getattr(ctx, "cache_specs", None)
+    if specs is None:
+        return state
+    from repro_torch.launch.shardings import placements
+
+    return {key: leaf.redistribute(leaf.device_mesh,
+                                   placements(leaf.device_mesh, specs[key]))
+            if is_dtensor(leaf) else leaf for key, leaf in state.items()}
+
+
 def _write_state(cache: dict, new: dict) -> None:
-    """Copy a recurrent state's new leaves into the cache's, in place."""
+    """Copy a recurrent state's new leaves into the cache's, in place; on
+    a mesh each rank copies its own block (the new leaf redistributed to
+    the cache leaf's layout first, where it is not already in it)."""
     for key, leaf in new.items():
-        cache[key].copy_(whole(leaf))
+        dst = cache[key]
+        if is_dtensor(dst):
+            dst.to_local().copy_(leaf.redistribute(
+                dst.device_mesh, dst.placements).to_local())
+        else:
+            dst.copy_(leaf)
 
 
 def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
@@ -333,7 +427,8 @@ def apply_layer_decode(lp: dict, spec: LayerSpec, x: torch.Tensor,
         _write_state(cache["tm"], tm)
     else:
         raise ValueError(spec.mixer)
-    x = x + mixed
+    # the output projection's Partial sum reduced here, as in the forward
+    x = _pin_act(ctx, x + mixed)
     if spec.mlp != MLP_NONE:
         h2 = apply_norm(lp["norm2"], x, cfg)
         if spec.mlp == MLP_DENSE:
@@ -489,8 +584,8 @@ def decode_step(
     if cfg.frontend == "audio":
         raise ValueError("encoder-only architectures have no decode step")
     with _scope(ctx):
-        x = embeds if embeds is not None else _embed_tokens(params, cfg,
-                                                            tokens)
+        x = _pin_act(ctx, embeds if embeds is not None
+                     else _embed_tokens(params, cfg, tokens))
         for u in range(cfg.num_units):
             unit_params = unit_slice(params["units"], u)
             unit_cache = unit_slice(cache["units"], u)

@@ -29,8 +29,13 @@ path with its capacity dispatch: the idle slots' rows route too and take
 capacity, so a request's tokens may depend on the other rows (the
 same-row oracle holds only on the dense path; a replay of the ticks the
 engine ran holds always).  On a ``DeviceMesh`` the parameters are
-DTensors laid out by ``param_pspecs``, and the tokens, positions and
-caches are plain tensors every rank holds whole.
+DTensors laid out by ``param_pspecs`` and the decode state is sharded as
+the reference lays it out: the cache by ``cache_pspecs`` (each rank
+allocates and writes only its own block), the tokens and positions by
+``decode_pspecs`` (slots over the data axes).  A prompt is prefilled in
+the batch-1 layout and its row is written by the ranks that own slot
+``b``, each its own slots or heads of it.  Each tick's tokens are
+gathered whole for the host copy.
 """
 from __future__ import annotations
 
@@ -45,7 +50,11 @@ import torch
 
 from repro_torch.device import HostCopy, resolve_device, synchronize, to_device
 from repro_torch.launch.mesh import LocalMesh
-from repro_torch.launch.shardings import distribute, param_pspecs
+from repro_torch.launch.shardings import (
+    decode_pspecs,
+    distribute,
+    param_pspecs,
+)
 from repro_torch.launch.steps import (
     make_decode_step,
     make_prefill_step,
@@ -56,7 +65,12 @@ from repro_torch.models.cache import insert_slot_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.moe import count_drops
-from repro_torch.models.shardctx import whole
+from repro_torch.models.shardctx import (
+    full_dtensor,
+    is_dtensor,
+    shard_range,
+    whole,
+)
 from repro_torch.models.transformer import Batch
 from repro_torch.serve.scheduler import FifoScheduler
 from repro_torch.serve.slots import Request, RequestResult, SlotTable
@@ -240,8 +254,12 @@ class ServeEngine:
         self.source = param_source
         self.swap_poll_every = max(1, swap_poll_every)
         self.version = getattr(param_source, "version", 0) or 0
-        self._prefill_step = make_prefill_step(cfg, self.mesh, self.pol,
-                                               max_len=max_len)
+        # a prompt is a batch of one: on a DeviceMesh it is prefilled in
+        # the batch-1 layout (rows unsplit, the cache's sequence over the
+        # data axes), and ``_insert`` lays its row out as the slots'
+        self._prefill_step = make_prefill_step(
+            cfg, self.mesh, self.pol, max_len=max_len,
+            batch_sharded=getattr(self.mesh, "is_local", False))
         self._decode = make_decode_step(cfg, self.mesh, self.pol,
                                         return_logits=False)
 
@@ -266,7 +284,6 @@ class ServeEngine:
 
     def _tick(self, tokens, positions, cache):
         next_tok, cache = self._decode(self.params, tokens, positions, cache)
-        next_tok = whole(next_tok)
         positions.add_(1)
         return next_tok, positions, cache
 
@@ -277,19 +294,30 @@ class ServeEngine:
         # a new token vector: the last tick's may still be on its way to
         # the host (on the CPU its host copy is the tensor itself)
         tokens = tokens.clone()
-        tokens[b] = first_tok[0]
-        # fill_ passes the number to the kernel; ``positions[b] = pos0``
-        # would copy it from the host, a blocking copy
-        positions[b:b + 1].fill_(pos0)
+        # on a mesh, the ranks whose block holds slot b write it
+        tok_l, pos_l, b_l = _slot_rows(tokens, positions, b)
+        if b_l is not None:
+            tok_l[b_l] = first_tok[0].to(tok_l.device)
+            # fill_ passes the number to the kernel; ``positions[b] = pos0``
+            # would copy it from the host, a blocking copy
+            pos_l[b_l:b_l + 1].fill_(pos0)
         return tokens, positions, cache
 
     def _fresh_state(self):
-        tokens = torch.zeros((self.num_slots, 1), dtype=torch.int32,
-                             device=self.device)
-        positions = torch.zeros((self.num_slots,), dtype=torch.int32,
-                                device=self.device)
+        shapes = ((self.num_slots, 1), (self.num_slots,))
+        if getattr(self.mesh, "is_local", False):
+            tokens, positions = (torch.zeros(shape, dtype=torch.int32,
+                                             device=self.device)
+                                 for shape in shapes)
+        else:
+            specs = decode_pspecs(self.cfg, self.pol, batch_sharded=True)
+            tokens, positions = (
+                full_dtensor(shape, 0, torch.int32, self.device, self.mesh,
+                             spec)
+                for shape, spec in zip(shapes, (specs.tokens,
+                                                specs.position)))
         cache = init_cache(self.cfg, self.num_slots, self.max_len, self.dtype,
-                           self.device)
+                           self.device, mesh=self.mesh, pol=self.pol)
         return tokens, positions, cache
 
     @torch.no_grad()
@@ -433,7 +461,7 @@ class ServeEngine:
                     for b in range(self.num_slots)
                     if rids[b] >= 0
                 ]
-                pending.append(_Pending(tok=HostCopy(tokens),
+                pending.append(_Pending(tok=HostCopy(whole(tokens)),
                                         deliveries=deliveries,
                                         version=self.version))
                 for b in done_slots:
@@ -459,6 +487,19 @@ class ServeEngine:
         ordered = [results[r.rid] for r in sorted(requests, key=lambda q: q.rid)]
         return ServeReport(results=ordered, wall_s=wall, ticks=tick_idx,
                            occupancy=occupancy, swaps=swaps, policy=policy)
+
+
+def _slot_rows(tokens, positions, b: int):
+    """(tokens, positions, row): the tensors a rank writes slot ``b`` of
+    the engine's state into, with ``b``'s row in them, or a row of None
+    where this rank's block does not hold it (DTensors laid out by
+    ``decode_pspecs``: their local blocks)."""
+    if not is_dtensor(tokens):
+        return tokens, positions, b
+    b0, n = shard_range(tokens.device_mesh, tokens.placements, 0,
+                        tokens.shape[0])
+    return (tokens.to_local(), positions.to_local(),
+            b - b0 if b0 <= b < b0 + n else None)
 
 
 def _total(drops: List[torch.Tensor]):
@@ -493,7 +534,7 @@ def replay_ticks(engine: "ServeEngine", requests: Sequence[Request],
         else:
             _, rids, _ = event
             tokens, positions, cache = engine._tick(tokens, positions, cache)
-            host = tokens.cpu()
+            host = whole(tokens).cpu()
             for b, rid in enumerate(rids):
                 if rid >= 0:
                     out[rid].append(int(host[b, 0]))

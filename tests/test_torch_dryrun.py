@@ -13,13 +13,20 @@
     the backward: XLA writes the cotangent of ``one_hot . z`` as a
     broadcast multiply, the port's einsum backward is a (rows, 1) x
     (1, V) product of 2 * (B * S / data) * V FLOPs (V whole).
-  - decode: the port's decode state (cache, tokens, positions, and the
-    query and output of the attention over the cache) is whole on every
-    rank by design, so its attention runs every row and head on every
-    rank (4 * B * H * hd * S * L FLOPs) and the products around it see
-    whole activations.  Held between the reference's count and the same
-    step on one device (a ``LocalMesh``), and above the reference's by at
-    least the whole-state attention's excess over its share of it.
+  - decode: equal.  The decode state is sharded as the reference's
+    ``in_shardings`` lay it out (the cache by ``cache_pspecs``, tokens and
+    positions by ``decode_pspecs``), so each rank attends over its rows
+    and KV heads only; the same step on one device (a ``LocalMesh``)
+    counts more.
+* Argument bytes a device of the decode step at (2, 4), batch 8 x 64
+  slots: olmo-1b (KV heads over model) and gemma3-4b (2 KV heads, so the
+  sequence over model) against the reference's compiled
+  ``memory_analysis().argument_size_in_bytes``: equal but for a named
+  padding term.  XLA pads every block of an uneven split to the largest,
+  torch gives the first ranks the extra rows, so rank 0's block (the one
+  the dry run counts) is XLA's size and the term is 0; these arguments
+  split evenly besides (``jit`` refuses an argument sharding that does
+  not divide its dimension).
 * ``dryrun_one`` on the 16 x 16 fake mesh (the smoke config and a small
   shape in place of the production ones): a record with the reference's
   keys, no ``error``, the roofline of rank 0's counts on H100 constants,
@@ -118,19 +125,39 @@ def _reference_flops() -> dict:
                     out_shardings=(ssh, whole)).lower(state, batch, None)
     prefill = jax.jit(jax_steps.make_prefill_step(cfg, mesh, pol, max_len=S),
                       in_shardings=(psh, bsh)).lower(params, batch)
-    cache = jax.eval_shape(lambda: jax_init_cache(cfg, B, S, jnp.bfloat16))
+    out = {kind: jax_hlo_stats.hlo_compute_stats(
+               lowered.compile().as_text())["dot_flops"]
+           for kind, lowered in (("train", train), ("prefill", prefill))}
+    out["decode"] = _reference_decode(ARCH, S)["flops"]
+    return out
+
+
+def _reference_decode(arch: str, seq: int) -> dict:
+    """The reference dry run's decode step at (2, 4), batch B: its
+    ``in_shardings`` / ``out_shardings``, compiled; matmul FLOPs and
+    argument bytes a device."""
+    cfg = dataclasses.replace(jax_registry.smoke_config(arch),
+                              dtype="bfloat16", remat=True)
+    mesh = jax_mesh.make_host_mesh(DATA, MODEL)
+    pol = jax_shardings.ShardingPolicy(dp_axes=("data",), dp_sizes=(DATA,),
+                                       model_axis_size=MODEL)
+    params = jax.eval_shape(lambda: jax_init_model(jax.random.PRNGKey(0), cfg))
+    psh = jax_shardings.named(mesh, jax_shardings.param_pspecs(cfg, params,
+                                                               pol))
+    cache = jax.eval_shape(lambda: jax_init_cache(cfg, B, seq, jnp.bfloat16))
     csh = jax_shardings.named(mesh, jax_shardings.cache_pspecs(
         cfg, cache, pol, batch_sharded=True))
-    decode = jax.jit(
+    tok = NamedSharding(mesh, P("data", None))
+    compiled = jax.jit(
         jax_steps.make_decode_step(cfg, mesh, pol, batch_sharded=True),
-        in_shardings=(psh, NamedSharding(mesh, P("data", None)),
-                      NamedSharding(mesh, P("data")), csh, None),
+        in_shardings=(psh, tok, NamedSharding(mesh, P("data")), csh, None),
+        out_shardings=(tok, NamedSharding(mesh, P("data", None, "model")),
+                       csh),
     ).lower(params, _sds((B, 1), jnp.int32), _sds((B,), jnp.int32), cache,
-            None)
-    return {kind: jax_hlo_stats.hlo_compute_stats(
-                lowered.compile().as_text())["dot_flops"]
-            for kind, lowered in (("train", train), ("prefill", prefill),
-                                  ("decode", decode))}
+            None).compile()
+    return {"flops": jax_hlo_stats.hlo_compute_stats(
+                compiled.as_text())["dot_flops"],
+            "args": compiled.memory_analysis().argument_size_in_bytes}
 
 
 @pytest.fixture(scope="module")
@@ -164,14 +191,42 @@ def test_train_flops_match_reference_but_the_one_hot_backward(flops):
 
 
 def test_decode_flops_between_reference_and_one_device(flops):
-    cfg = flops["cfg"]
-    attention = (4 * B * cfg.num_heads * cfg.resolved_head_dim * S
-                 * cfg.num_units * len(cfg.unit))
     ref, port, one = (flops["reference"]["decode"], flops["port"]["decode"],
                       flops["one_device"])
-    assert ref < port < one
-    # the whole-state attention alone exceeds the reference's share of it
-    assert port - ref >= attention * (1 - 1 / (DATA * MODEL))
+    # the sharded decode state: the reference's count exactly
+    assert port == ref
+    assert port < one
+
+
+# rank 0's block of an uneven split is the largest, the size XLA pads
+# every block to: no bytes between the two counts
+XLA_PADDING = 0
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-4b"])
+def test_decode_argument_bytes_match_reference(arch):
+    seq = S
+    cfg = registry.smoke_config(arch).replace(dtype="bfloat16", remat=True)
+    pol = ShardingPolicy(dp_axes=("data",), dp_sizes=(DATA,),
+                         model_axis_size=MODEL)
+    with dryrun.fake_world(DATA * MODEL):
+        mesh = make_host_mesh(DATA, MODEL, device="cpu")
+        traced = dryrun.trace_step(cfg, mesh, pol, kind="decode", seq=seq,
+                                   batch=B)
+        _, _, cache, _ = dryrun.make_inputs(cfg, "decode", seq, B, mesh, pol)
+        # gemma3's unit: a local-window layer, then the global one
+        local = cache["units"][-1]["k"].to_local().shape
+    ref = _reference_decode(arch, seq)
+    assert traced["argument_size"] + XLA_PADDING == ref["args"]
+    # the cache is each rank's share: rows over data, and KV heads (olmo)
+    # or the sequence (gemma3) over model
+    if arch == "olmo-1b":
+        assert tuple(local) == (cfg.num_units, B // DATA, seq,
+                                cfg.num_kv_heads // MODEL,
+                                cfg.resolved_head_dim)
+    else:
+        assert tuple(local) == (cfg.num_units, B // DATA, seq // MODEL,
+                                cfg.num_kv_heads, cfg.resolved_head_dim)
 
 
 def test_dryrun_one_record(monkeypatch, tmp_path):
