@@ -171,7 +171,11 @@ Phases, one JSON line each:
                     its spec's share (the slot positions are whole over
                     model where the KV heads take it, so at (1, 2) the
                     cache is a little over half); the decode tick's host
-                    ms on world 2 and on one rank (``decode_mesh`` lines)
+                    ms on world 2 and on one rank (``decode_mesh`` lines);
+                    each rank's collectives of the last tick, counted by
+                    ``hlo_stats.CollectiveMeter`` after the timed ones:
+                    none as large as the embedding table (the lookup is
+                    vocabulary-parallel)
            baselines  build_runtime(..., baseline=True): 2 rounds each of
                     Basic FL (fedavg) and CwMed over 90 clients, then 20
                     steps of train_standalone: finite params that moved,
@@ -325,7 +329,10 @@ Phases, one JSON line each:
                     sharded by cache_pspecs: no error; olmo-1b's FLOPs
                     within 10 % of 2 N B / 256 plus the attention over
                     the cache (dryrun_decode_expected_flops), its peak
-                    under 5 GB a device
+                    under 2.45 GB a device and gemma3-4b's under 1 GB
+                    (no table gathered whole); each record beside the
+                    one of the lookup that gathered the table
+                    (DRYRUN_WHOLE_TABLE)
 Then the ``kernels`` summary line, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; without CUDA it exits 2.
@@ -2705,6 +2712,11 @@ DECODE_MESH_RUNS = {"heads_over_model": ((1, 2), 4, 64, 128),
                     "seq_over_data": ((2, 1), 1, 1024, 2048)}
 DECODE_MESH_GEN = 16         # tokens a row: the prefill's and 15 ticks
 DECODE_MESH_ATOL = 1e-4      # logits against the LocalMesh steps
+# run -> the tick's host ms (lowest, highest over the ranks' medians) while
+# the lookup gathered the 412 MB table every tick (NVIDIA H100 80GB HBM3,
+# 700.00 W): kept beside the tick of this run
+DECODE_MESH_WHOLE_TABLE_MS = {"heads_over_model": (741.22, 744.60),
+                              "seq_over_data": (156.88, 158.62)}
 
 
 def place(tree, mesh, specs):
@@ -2738,8 +2750,12 @@ def decode_mesh_run(cfg, params, mesh, pol, run: str, device) -> dict:
     through the port's steps on ``mesh`` (a DeviceMesh: params, prompt,
     tokens and positions placed by their specs; the LocalMesh: plain
     tensors): the tokens, every token's logits (whole), each tick's host
-    ms (synchronized), and the cache's bytes on this rank and whole."""
+    ms (synchronized; the last tick is metered instead, its collectives
+    counted by ``CollectiveMeter``), and the cache's bytes on this rank
+    and whole."""
     import torch
+
+    from repro_torch.launch.hlo_stats import CollectiveMeter
 
     from repro_torch.launch.shardings import (
         batch_pspecs,
@@ -2766,7 +2782,7 @@ def decode_mesh_run(cfg, params, mesh, pol, run: str, device) -> dict:
     prefill = make_prefill_step(cfg, mesh, pol, max_len=max_len,
                                 batch_sharded=bs)
     decode = make_decode_step(cfg, mesh, pol, batch_sharded=bs)
-    ticks = []
+    ticks, meter = [], CollectiveMeter()
     with torch.no_grad():
         logits, cache = prefill(params, batch)
         tok = torch.argmax(whole(logits)[:, -1], -1).to(torch.int32)[:, None]
@@ -2778,18 +2794,26 @@ def decode_mesh_run(cfg, params, mesh, pol, run: str, device) -> dict:
             p_in = p if local else place(p, mesh, dspec.position)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tok, logits, cache = decode(params, t_in, p_in, cache)
+            metered = i == DECODE_MESH_GEN - 2
+            with meter if metered else contextlib.nullcontext():
+                tok, logits, cache = decode(params, t_in, p_in, cache)
             torch.cuda.synchronize()
-            ticks.append((time.perf_counter() - t0) * 1e3)
+            if not metered:
+                ticks.append((time.perf_counter() - t0) * 1e3)
             tok = whole(tok)
             toks.append(tok)
             seen.append(whole(logits)[:, -1])
     nbytes = lambda t: t.numel() * t.element_size()
     kv = [t for path, t in tree_paths(cache) if path[-1] in ("k", "v")]
+    table = params["embed"]
     return dict(
         tokens=torch.cat(toks, 1).cpu().numpy(),
         logits=torch.stack(seen).float().cpu().numpy(),
         tick_ms=ticks,
+        tick_collective_bytes=meter.stats.bytes_by_kind,
+        tick_collective_counts=meter.stats.count_by_kind,
+        tick_largest_collective=meter.stats.largest_by_kind,
+        table_bytes=table.numel() * table.element_size(),
         cache_bytes=sum(nbytes(t.to_local() if is_dtensor(t) else t)
                         for t in leaves),
         cache_whole_bytes=sum(nbytes(t) for t in leaves),
@@ -2898,6 +2922,11 @@ def path_decode_mesh_world2() -> None:
                  cache_in_place=got["cache_in_place"],
                  tick_host_ms=float(np.median(got["tick_ms"])),
                  tick_host_ms_all=got["tick_ms"],
+                 tick_collective_bytes=got["tick_collective_bytes"],
+                 tick_collective_counts=got["tick_collective_counts"],
+                 tick_largest_collective=got["tick_largest_collective"],
+                 table_bytes=got["table_bytes"],
+                 whole_table_tick_host_ms=DECODE_MESH_WHOLE_TABLE_MS.get(run),
                  one_rank_tick_host_ms=float(np.median(want["tick_ms"])),
                  one_rank_cache_bytes=want["cache_bytes"],
                  seconds=got["seconds"], one_rank_seconds=want["seconds"])
@@ -2907,6 +2936,11 @@ def path_decode_mesh_world2() -> None:
             check(err <= DECODE_MESH_ATOL,
                   f"decode_mesh_world2 {run} rank {r['rank']}: logits off by "
                   f"{err}")
+            largest = max(got["tick_largest_collective"].values(), default=0)
+            check(0 < largest < got["table_bytes"],
+                  f"decode_mesh_world2 {run} rank {r['rank']}: a tick's "
+                  f"largest collective {largest} bytes against the table's "
+                  f"{got['table_bytes']}")
             check(2 * got["kv_bytes"] == got["kv_whole_bytes"]
                   == want["kv_bytes"] and got["leaves_shared"]
                   and got["cache_in_place"]
@@ -4989,8 +5023,17 @@ DRYRUN_PAIR = ("olmo-1b", "train_4k")
 # one with the sequence over data and model
 DRYRUN_DECODE = (("olmo-1b", "decode_32k"), ("gemma3-4b", "long_500k"))
 DRYRUN_TOLERANCE = 0.10
-DECODE_PEAK_BYTES = 5e9      # olmo-1b decode_32k a device: 549.8 GB / 256
-                             # of cache and the model's share
+# pair -> the peak bytes a device it must stay under: olmo-1b decode_32k
+# holds 549.8 GB / 256 of cache and the model's share; neither may gather
+# the embedding table whole (gemma3-4b's is 1.34 GB in bfloat16)
+DECODE_PEAK_BYTES = {("olmo-1b", "decode_32k"): 2.45e9,
+                     ("gemma3-4b", "long_500k"): 1e9}
+# pair -> (peak bytes, collective bytes) a device of the records while the
+# lookup gathered the table whole (the same dry run on the chip machine's
+# CPU), kept beside each new record
+DRYRUN_WHOLE_TABLE = {("olmo-1b", "decode_32k"): (2_804_467_776, 283_053_184),
+                      ("gemma3-4b", "long_500k"): (4_183_541_208,
+                                                   1_432_106_752)}
 EXAMPLES = (("torch_quickstart.py", "--rounds", "2", "--clients", "20",
              "--local-steps", "3"),
             ("torch_serve_demo.py",))
@@ -5047,7 +5090,8 @@ def phase_examples_and_dryrun() -> None:
     FLOPs a device are within DRYRUN_TOLERANCE of
     ``dryrun_expected_flops``; olmo-1b's decode_32k (the decode state
     sharded by cache_pspecs) within DRYRUN_TOLERANCE of
-    ``dryrun_decode_expected_flops``, its peak under DECODE_PEAK_BYTES.
+    ``dryrun_decode_expected_flops``; each decode pair's peak under its
+    DECODE_PEAK_BYTES, its record beside DRYRUN_WHOLE_TABLE's.
     ``examples``: the torch quickstart (2 rounds, 20 writers, 3 local
     steps) and the serve demo on the card, each in a child process, exit
     code 0."""
@@ -5111,17 +5155,25 @@ def phase_examples_and_dryrun() -> None:
              argument_size=rec.get("argument_size"),
              output_size=rec.get("output_size"),
              roofline=rec.get("roofline"),
+             **({"whole_table_peak_memory_per_device":
+                 DRYRUN_WHOLE_TABLE[arch, shape][0],
+                 "whole_table_collective_bytes_per_device":
+                 DRYRUN_WHOLE_TABLE[arch, shape][1],
+                 "collective_bytes_per_device":
+                 rec.get("collective_bytes_per_device")}
+                if decode else {}),
              **({} if decode else
                 {"over_6NT": rec["flops_per_device"]
                  / expected["model_6NT"]}))
+        check(not decode or rec["peak_memory_per_device"]
+              <= DECODE_PEAK_BYTES[arch, shape],
+              f"dryrun {arch} x {shape}: peak "
+              f"{rec['peak_memory_per_device']} bytes a device")
         if decode and arch != "olmo-1b":
             continue
         check(abs(ratio - 1) <= DRYRUN_TOLERANCE,
               f"dryrun {arch} x {shape}: {rec['flops_per_device']} FLOPs a "
               f"device, {ratio} of the expected {sum(expected.values())}")
-        check(not decode or rec["peak_memory_per_device"] <= DECODE_PEAK_BYTES,
-              f"dryrun {arch} x {shape}: peak "
-              f"{rec['peak_memory_per_device']} bytes a device")
 
 
 def merged(intervals) -> list:

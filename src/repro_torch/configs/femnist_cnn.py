@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.client_gemm import client_linear
 from repro_torch.numerics import recip_f32
 
+ARCH_ID = "femnist-cnn"
 NUM_CLASSES = 62
+IMAGE_SHAPE = (28, 28, 1)       # NHWC: height, width, channels
 
 
 def init_params(generator: torch.Generator, *, width: int = 32,

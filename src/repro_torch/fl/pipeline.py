@@ -139,13 +139,46 @@ class Stage(Protocol):
     def __call__(self, ctx: RoundContext) -> None: ...
 
 
-SAMPLERS: Dict[str, Stage] = {}
-LOCAL_TRAINERS: Dict[str, Stage] = {}
-VALIDATORS: Dict[str, Stage] = {}
-PACKERS: Dict[str, Stage] = {}
-AGGREGATORS: Dict[str, Stage] = {}
-ELECTORS: Dict[str, Stage] = {}
-REWARDERS: Dict[str, Stage] = {}
+class Sampler(Stage, Protocol):
+    """Chooses ``ctx.trainers`` for the current cohort (empty = stop)."""
+
+
+class LocalTrainer(Stage, Protocol):
+    """Trains the cohort locally -> ``ctx.cohort_updates`` (may poison)."""
+
+
+class Validator(Stage, Protocol):
+    """Scores/admits the cohort's updates into ``ctx.updates`` and sets
+    ``ctx.collected`` once the round's trigger condition is met.  May
+    additionally define ``prepare(ctx)``, run once before cohort 0
+    (e.g. to sample committee validation data)."""
+
+
+class Packer(Stage, Protocol):
+    """Selects the round's update set -> ``ctx.packed_*`` (+ chain update
+    blocks, when a chain is present)."""
+
+
+class Aggregator(Stage, Protocol):
+    """Reduces the packed updates -> ``ctx.aggregate`` / ``ctx.new_params``
+    (+ chain model block, when a chain is present)."""
+
+
+class Elector(Stage, Protocol):
+    """Seats the next committee -> ``ctx.committee``."""
+
+
+class Rewarder(Stage, Protocol):
+    """Distributes incentives and does end-of-round housekeeping."""
+
+
+SAMPLERS: Dict[str, Sampler] = {}
+LOCAL_TRAINERS: Dict[str, LocalTrainer] = {}
+VALIDATORS: Dict[str, Validator] = {}
+PACKERS: Dict[str, Packer] = {}
+AGGREGATORS: Dict[str, Aggregator] = {}
+ELECTORS: Dict[str, Elector] = {}
+REWARDERS: Dict[str, Rewarder] = {}
 
 REGISTRIES: Dict[str, Dict[str, Stage]] = {
     "sampler": SAMPLERS,

@@ -30,6 +30,9 @@ recomputation counted as often as they run:
   at its global size on torch 2.11: 666.54 GB a device for olmo-1b's
   ``train_4k`` step.)
 
+``CollectiveMeter`` counts the same collectives, by the same kinds and
+bytes, for a step run on real tensors over a real process group.
+
 Hardware model: one NVIDIA H100 SXM (NVIDIA H100 80GB HBM3, 700.00 W),
 from NVIDIA's H100 data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
 900 GB/s NVLink (the sum of both directions over its 18 links).
@@ -43,6 +46,7 @@ from typing import Dict, Iterator, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 from torch.utils.weak import WeakIdKeyDictionary
@@ -80,6 +84,8 @@ def _nbytes(tree) -> int:
 class CollectiveStats:
     bytes_by_kind: Dict[str, int] = field(default_factory=dict)
     count_by_kind: Dict[str, int] = field(default_factory=dict)
+    # the bytes of the largest single collective of each kind
+    largest_by_kind: Dict[str, int] = field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
@@ -88,6 +94,8 @@ class CollectiveStats:
     def add(self, kind: str, nbytes: int, mult: int = 1):
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes * mult
         self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + mult
+        self.largest_by_kind[kind] = max(self.largest_by_kind.get(kind, 0),
+                                         nbytes)
 
 
 @dataclass
@@ -184,6 +192,33 @@ class DeviceOpsMode(FakeTensorMode):
                 self._flops_of[packet](*args, **kwargs, out_val=out))
             operands = [a for a in args if isinstance(a, torch.Tensor)][:2]
             record.dot_bytes += _nbytes(operands) + _nbytes(out)
+        return out
+
+
+class CollectiveMeter(TorchDispatchMode):
+    """The collectives this process issues on real tensors while the mode
+    is on, into ``stats`` (a ``CollectiveStats``), by the kinds and bytes
+    ``DeviceOpsMode`` records: c10d's in-place ops (``launch/mesh.py``,
+    the local maps) and the functional ones (a DTensor's
+    redistribution), whose DTensor operations it lets DTensor take apart
+    first.  Every operation passes through Python while it is on: meter
+    a step apart from the steps that are timed."""
+
+    def __init__(self):
+        super().__init__()
+        self.stats = CollectiveStats()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        collective = _COLLECTIVES.get(
+            f"{func.namespace}.{func._overloadpacket.__name__}")
+        if collective is not None:
+            kind, where = collective
+            self.stats.add(kind, _nbytes(out if where == "out" else args[0]))
         return out
 
 

@@ -49,9 +49,9 @@ from repro_torch.models.moe import MoEShardingCtx
 from repro_torch.models.shardctx import (
     ShardCtx,
     is_dtensor,
-    keep_dims,
     make_shard_ctx,
     replicate,
+    vocab_argmax,
     whole,
 )
 from repro_torch.models.transformer import Batch
@@ -363,13 +363,10 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
             params, cfg, tokens, position, cache, ctx,
             mrope_position=mrope_position)
         with ctx.scope():
-            last = logits[:, -1, :]
-            if is_dtensor(last):
-                # the vocabulary whole on each rank of a row (DTensor's own
-                # argmax over a split dimension fails on a batch of one)
-                last = last.redistribute(last.device_mesh,
-                                         keep_dims(last.placements, {0: 0}))
-            next_token = torch.argmax(last, dim=-1).to(torch.int32)
+            # on a mesh, each vocabulary shard's max and index, the pairs
+            # gathered (DTensor's own argmax over a split dimension fails
+            # on a batch of one)
+            next_token = vocab_argmax(logits[:, -1, :])
         if return_logits:
             return next_token[:, None], logits, new_cache
         return next_token[:, None], new_cache

@@ -127,7 +127,11 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         if "up_b" in params:
             h = h + params["up_b"]
         h = f(h)
-    y = h @ params["down"]
+    # on a mesh, h reduced first: a Partial h (a batch of one, the gated
+    # product's sum over data) would make DTensor gather down's D
+    from repro_torch.models.shardctx import reduce_partial
+
+    y = reduce_partial(h) @ params["down"]
     if "down_b" in params:
         y = y + params["down_b"]
     return y

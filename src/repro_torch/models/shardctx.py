@@ -11,7 +11,10 @@ instead of letting sharding propagation gather it.
 On a DeviceMesh the decode cache is DTensors laid out by
 ``launch.shardings.cache_pspecs``; the local maps below read and write
 each rank's blocks of it, and ``softmax_merge`` joins the attention over
-a cache whose sequence is split over ranks.
+a cache whose sequence is split over ranks.  The embedding lookup
+(``vocab_lookup``) and the greedy pick over split logits
+(``vocab_argmax``) are local maps too: each rank works on its own block
+of the vocabulary, as the reference's compiled steps do.
 
 ``scope()`` is where the model runs on the mesh: on a ``DeviceMesh`` it
 is DTensor's ``implicit_replication``, under which the plain tensors the
@@ -26,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.launch.mesh import all_gather, reduce_scatter
 from repro_torch.models.moe import MoEShardingCtx
 
 
@@ -136,6 +140,21 @@ def whole(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def reduce_partial(x):
+    """``x`` with each ``Partial`` placement reduced to ``Replicate`` (its
+    cotangent stays as it comes: DTensor keeps a replicated gradient
+    replicated); plain tensors, and DTensors with no ``Partial``, pass
+    through.  Before a product with a weight split along its output
+    (the MLP's ``down`` at a batch of one, its D split over data): a
+    ``Partial`` operand there makes DTensor gather the weight."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
 # ----------------------------------------------------------------------------
 # local maps: the decode state on a mesh
 # ----------------------------------------------------------------------------
@@ -218,13 +237,19 @@ def full_dtensor(shape, fill, dtype, device, mesh, spec):
     return as_dtensor(local, mesh, pl, shape)
 
 
+def split_dims(mesh, placements, dim=None) -> list:
+    """The mesh dimensions of size 2 or more on which ``placements``
+    split tensor dimension ``dim`` (any dimension when None), in mesh
+    order."""
+    return [i for i, p in enumerate(placements)
+            if p.is_shard() and mesh.size(i) > 1
+            and (dim is None or p.dim == dim)]
+
+
 def local_groups(mesh, placements, dim: int) -> list:
     """The process groups of the mesh dimensions that split ``dim``, in
     mesh order (size-1 dimensions hold no split)."""
-    from torch.distributed.tensor import Shard
-
-    return [mesh.get_group(i) for i, p in enumerate(placements)
-            if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1]
+    return [mesh.get_group(i) for i in split_dims(mesh, placements, dim)]
 
 
 def all_reducer(groups):
@@ -255,6 +280,132 @@ def softmax_merge(m, l, o, reduce):
     m_all = reduce(m, "max")
     c = torch.exp(m - m_all)
     return reduce(o * c, "sum") / reduce(l * c, "sum")
+
+
+# ----------------------------------------------------------------------------
+# local maps: the vocabulary
+# ----------------------------------------------------------------------------
+
+
+class _VocabLookup(torch.autograd.Function):
+    """``vocab_lookup``'s local map on a rank's table block (vn, dn) and
+    its tokens.  ``plan``: (v0, the model groups, the D groups, (d0, dn),
+    gather_block), groups in mesh order."""
+
+    @staticmethod
+    def forward(ctx, block, tokens, plan):
+        v0, v_groups, d_groups, _, gather_block = plan
+        if gather_block:
+            # the rank's rows whole in D, the minor axis's blocks first
+            for g in reversed(d_groups):
+                block = all_gather(block, 1, g)
+        local = tokens.long() - v0
+        hit = (local >= 0) & (local < block.shape[0])
+        idx = torch.where(hit, local, torch.zeros_like(local))
+        rows = torch.where(hit[..., None], block[idx], block.new_zeros(()))
+        # one real row and zeros over the model ranks: an exact sum
+        out = all_reducer(v_groups)(rows, "sum")
+        if not gather_block:
+            for g in reversed(d_groups):
+                out = all_gather(out, -1, g)
+        ctx.save_for_backward(idx, hit)
+        ctx.plan, ctx.rows = plan, block.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, hit = ctx.saved_tensors
+        _, _, d_groups, (d0, dn), gather_block = ctx.plan
+        if d_groups and not gather_block:
+            g = g.narrow(-1, d0, dn)
+        # the backward of ``block[idx]`` (aten's index backward, whose
+        # sums run in a fixed order): on a mesh of one rank, the bits of
+        # the plain lookup's gradient
+        grad = g.new_zeros((ctx.rows, g.shape[-1])).index_put_(
+            (idx,), torch.where(hit[..., None], g, g.new_zeros(())),
+            accumulate=True)
+        if gather_block:
+            # the other ranks' tokens' rows summed, each keeping its D block
+            for gr in d_groups:
+                grad = reduce_scatter(grad, 1, gr)
+        return grad, None, None
+
+
+def vocab_lookup(table, tokens):
+    """``table[tokens]`` for a (V, D) DTensor table laid out as
+    ``param_pspecs`` lays out the embedding: V split over model, D over
+    the data axes under FSDP.  The local map never gathers the table:
+
+    * each rank looks up the rows of its own vocabulary block; a token
+      outside the block gives a zero row, and the rows are summed over
+      model (one real row plus zeros: exact);
+    * where D is split over axes that also split the tokens (FSDP, the
+      batch over data), the rank's block is first gathered whole in D
+      (V / model x D, the gather FSDP makes of every other weight);
+      where the tokens are whole on those axes (a batch of one), the
+      (..., D / data) rows are looked up and gathered along D instead.
+
+    The result is laid out as the tokens are (plain tokens: whole on
+    every rank).  The backward scatter-adds each rank's cotangent rows
+    into its own block only: a ``Partial`` sum over the axes that split
+    the tokens, reduce-scattered over D's axes where the block was
+    gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    tpl = tuple(table.placements)
+    V, D = table.shape
+    if is_dtensor(tokens):
+        tok_pl, tok = tuple(tokens.placements), tokens.to_local()
+    else:
+        tok_pl, tok = (Replicate(),) * mesh.ndim, tokens
+    v_dims, d_dims = split_dims(mesh, tpl, 0), split_dims(mesh, tpl, 1)
+    t_dims = split_dims(mesh, tok_pl)
+    if set(t_dims) & set(v_dims):
+        raise ValueError("tokens split over the vocabulary's mesh axes")
+    gather_block = bool(set(t_dims) & set(d_dims))
+    grad_pl = tuple(Shard(0) if i in v_dims else Shard(1) if i in d_dims
+                    else Partial() if i in t_dims else Replicate()
+                    for i in range(mesh.ndim))
+    v0, _ = shard_range(mesh, tpl, 0, V)
+    plan = (v0, local_groups(mesh, tpl, 0), local_groups(mesh, tpl, 1),
+            shard_range(mesh, tpl, 1, D), gather_block)
+    out = _VocabLookup.apply(table.to_local(grad_placements=grad_pl), tok,
+                             plan)
+    return as_dtensor(out, mesh, tok_pl, tuple(tokens.shape) + (D,))
+
+
+def _pick_largest(vals, idxs):
+    """Over the leading axis of (n, B) candidate maxima and their indices:
+    the largest value, a tie going to the lowest index and a NaN counting
+    as the largest (``jnp.argmax``'s pick).  Returns (value, index)."""
+    nan = vals.isnan()
+    score = torch.where(nan, torch.full_like(vals, float("inf")), vals)
+    top = (score == score.amax(0)) & (nan | ~nan.any(0))
+    k = torch.where(top, idxs, torch.full_like(idxs, torch.iinfo(
+        idxs.dtype).max)).argmin(0)[None]
+    return vals.gather(0, k)[0], idxs.gather(0, k)[0]
+
+
+def vocab_argmax(x):
+    """``argmax(x, -1)`` as int32 of (B, V) logits.  A DTensor whose V is
+    split over mesh axes takes each rank's largest entry and its global
+    index, gathers the (value, index) pairs over those axes and keeps the
+    largest, a tie to the lowest index (``jnp.argmax``'s); the vocabulary
+    row is never gathered.  The result is laid out as ``x``'s rows are."""
+    if not is_dtensor(x):
+        return torch.argmax(x, dim=-1).to(torch.int32)
+    mesh = x.device_mesh
+    pl = keep_dims(x.placements, {0: 0, 1: 1})
+    loc = local_part(x, mesh, pl)
+    v0, _ = shard_range(mesh, pl, 1, x.shape[1])
+    idx = torch.argmax(loc, dim=-1)
+    val = loc.gather(-1, idx[:, None])[:, 0]
+    idx = (idx + v0).to(torch.int32)
+    for g in local_groups(mesh, pl, 1):
+        val, idx = _pick_largest(all_gather(val[None], 0, g),
+                                 all_gather(idx[None], 0, g))
+    return as_dtensor(idx, mesh, keep_dims(pl, {0: 0}), (x.shape[0],))
 
 
 class ShardCtx(NamedTuple):

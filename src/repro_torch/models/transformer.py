@@ -85,6 +85,7 @@ from repro_torch.models.shardctx import (
     keep_dims,
     local_part,
     shard_range,
+    vocab_lookup,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
@@ -188,30 +189,10 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # ----------------------------------------------------------------------------
 
 
-def _gather_rows(table, tokens: torch.Tensor):
-    """``table[tokens]`` on a mesh, as each rank's own rows of the whole
-    table: the table is gathered whole, each rank indexes it with its
-    tokens, and the result is split as the tokens are.  The table's local
-    gradient is a partial sum over the axes that split the tokens (each
-    rank saw other rows) and replicated over the others.  DTensor's own
-    rule for the backward's ``index_put`` fails on torch 2.11."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
-    mesh = table.device_mesh
-    if not is_dtensor(tokens):
-        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
-                                    run_check=False)
-    grad_pl = tuple(Partial() if isinstance(p, Shard) else Replicate()
-                    for p in tokens.placements)
-    local = table.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
-        grad_placements=grad_pl)
-    return DTensor.from_local(local[tokens.to_local().long()], mesh,
-                              tokens.placements, run_check=False)
-
-
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     table = params["embed"]
-    x = (_gather_rows(table, tokens) if is_dtensor(table)
+    # on a mesh, each rank looks up its own vocabulary block
+    x = (vocab_lookup(table, tokens) if is_dtensor(table)
          else table[tokens.long()])                      # (B,S,D)
     if cfg.scale_embeddings:
         # the reference rounds sqrt(d) to the activation dtype first; a

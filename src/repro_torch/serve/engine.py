@@ -69,6 +69,7 @@ from repro_torch.models.shardctx import (
     full_dtensor,
     is_dtensor,
     shard_range,
+    vocab_argmax,
     whole,
 )
 from repro_torch.models.transformer import Batch
@@ -279,7 +280,7 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _prefill(self, batch: Batch):
         logits, cache = self._prefill_step(self.params, batch)
-        tok = torch.argmax(whole(logits)[:, -1, :], dim=-1).to(torch.int32)
+        tok = whole(vocab_argmax(logits[:, -1, :]))
         return tok[:, None], cache
 
     def _tick(self, tokens, positions, cache):

@@ -27,6 +27,14 @@
   the dry run counts) is XLA's size and the term is 0; these arguments
   split evenly besides (``jit`` refuses an argument sharding that does
   not divide its dimension).
+* The vocabulary on the mesh (olmo-1b and gemma3-4b smoke, bf16, remat,
+  (2, 4)): a decode of one row does the reference's matmul FLOPs a
+  device (the MLP's ``down`` keeps D split over data); the decode's
+  all-gather bytes a device are within twice the reference's at batch 1
+  and no more than the reference's at batch 8, and none of its
+  collectives is as large as the embedding table; the lookup's forward
+  and backward (FSDP on and off, batch 1 and 8) make no collective as
+  large as the table.
 * ``dryrun_one`` on the 16 x 16 fake mesh (the smoke config and a small
   shape in place of the production ones): a record with the reference's
   keys, no ``error``, the roofline of rank 0's counts on H100 constants,
@@ -132,10 +140,11 @@ def _reference_flops() -> dict:
     return out
 
 
-def _reference_decode(arch: str, seq: int) -> dict:
-    """The reference dry run's decode step at (2, 4), batch B: its
-    ``in_shardings`` / ``out_shardings``, compiled; matmul FLOPs and
-    argument bytes a device."""
+def _reference_decode(arch: str, seq: int, rows: int = B) -> dict:
+    """The reference dry run's decode step at (2, 4), batch ``rows`` (the
+    batch over data when more than one): its ``in_shardings`` /
+    ``out_shardings``, compiled; matmul FLOPs, argument bytes and
+    all-gather bytes a device."""
     cfg = dataclasses.replace(jax_registry.smoke_config(arch),
                               dtype="bfloat16", remat=True)
     mesh = jax_mesh.make_host_mesh(DATA, MODEL)
@@ -144,20 +153,25 @@ def _reference_decode(arch: str, seq: int) -> dict:
     params = jax.eval_shape(lambda: jax_init_model(jax.random.PRNGKey(0), cfg))
     psh = jax_shardings.named(mesh, jax_shardings.param_pspecs(cfg, params,
                                                                pol))
-    cache = jax.eval_shape(lambda: jax_init_cache(cfg, B, seq, jnp.bfloat16))
+    bs = rows > 1
+    dp = "data" if bs else None
+    cache = jax.eval_shape(lambda: jax_init_cache(cfg, rows, seq,
+                                                  jnp.bfloat16))
     csh = jax_shardings.named(mesh, jax_shardings.cache_pspecs(
-        cfg, cache, pol, batch_sharded=True))
-    tok = NamedSharding(mesh, P("data", None))
+        cfg, cache, pol, batch_sharded=bs))
+    tok = NamedSharding(mesh, P(dp, None))
     compiled = jax.jit(
-        jax_steps.make_decode_step(cfg, mesh, pol, batch_sharded=True),
-        in_shardings=(psh, tok, NamedSharding(mesh, P("data")), csh, None),
-        out_shardings=(tok, NamedSharding(mesh, P("data", None, "model")),
+        jax_steps.make_decode_step(cfg, mesh, pol, batch_sharded=bs),
+        in_shardings=(psh, tok, NamedSharding(mesh, P(dp)), csh, None),
+        out_shardings=(tok, NamedSharding(mesh, P(dp, None, "model")),
                        csh),
-    ).lower(params, _sds((B, 1), jnp.int32), _sds((B,), jnp.int32), cache,
-            None).compile()
-    return {"flops": jax_hlo_stats.hlo_compute_stats(
-                compiled.as_text())["dot_flops"],
-            "args": compiled.memory_analysis().argument_size_in_bytes}
+    ).lower(params, _sds((rows, 1), jnp.int32), _sds((rows,), jnp.int32),
+            cache, None).compile()
+    text = compiled.as_text()
+    return {"flops": jax_hlo_stats.hlo_compute_stats(text)["dot_flops"],
+            "args": compiled.memory_analysis().argument_size_in_bytes,
+            "all_gather": jax_hlo_stats.collective_stats(
+                text).bytes_by_kind.get("all-gather", 0)}
 
 
 @pytest.fixture(scope="module")
@@ -259,3 +273,118 @@ def test_dryrun_one_record(monkeypatch, tmp_path):
     hubert = dryrun.dryrun_one("hubert-xlarge", "decode_32k", verbose=False)
     assert hubert["skipped"] == ref.shape_applicable(
         jax_registry.get_config("hubert-xlarge"), "decode_32k")
+
+
+# ----------------------------------------------------------------------------
+# the vocabulary on the mesh: the lookup, the batch-1 MLP and the argmax
+# ----------------------------------------------------------------------------
+
+DECODE_ARCHS = ("olmo-1b", "gemma3-4b")
+# the reference's decode matmul FLOPs a device at (2, 4), batch 1, from its
+# compiled step in bfloat16 with remat (``_reference_decode``)
+REFERENCE_BATCH1_FLOPS = {"olmo-1b": 122_880, "gemma3-4b": 111_616}
+
+
+def _smoke_bf16(arch):
+    return registry.smoke_config(arch).replace(dtype="bfloat16", remat=True)
+
+
+def _mesh_pol(fsdp=True):
+    return ShardingPolicy(dp_axes=("data",), dp_sizes=(DATA,),
+                          model_axis_size=MODEL, fsdp=fsdp)
+
+
+def _table_bytes(cfg):
+    return cfg.vocab_size * cfg.d_model * 2           # bfloat16
+
+
+@pytest.fixture(scope="module")
+def decode_counts():
+    """(arch, rows) -> the port's traced decode step at (2, 4) (FLOPs and
+    the collectives a device) and the reference's compiled one."""
+    out = {}
+    with dryrun.fake_world(DATA * MODEL):
+        mesh = make_host_mesh(DATA, MODEL, device="cpu")
+        for arch in DECODE_ARCHS:
+            for rows in (1, B):
+                traced = dryrun.trace_step(_smoke_bf16(arch), mesh,
+                                           _mesh_pol(), kind="decode",
+                                           seq=S, batch=rows)
+                rec = traced["record"]
+                out[arch, rows] = {"flops": rec.dot_flops,
+                                   "collectives": rec.collectives}
+    for arch, rows in out:
+        out[arch, rows]["reference"] = _reference_decode(arch, S, rows)
+    return out
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_batch1_decode_flops_match_reference(decode_counts, arch):
+    """The batch-1 MLP keeps D split over data as the reference does: a
+    decode of one row does the reference's matmul FLOPs a device."""
+    got = decode_counts[arch, 1]
+    assert got["reference"]["flops"] == REFERENCE_BATCH1_FLOPS[arch]
+    assert got["flops"] == REFERENCE_BATCH1_FLOPS[arch]
+
+
+@pytest.mark.parametrize("rows", [1, B])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_decode_all_gather_bytes_against_reference(decode_counts, arch, rows):
+    """All-gather bytes a device of the decode step: at batch 1 within
+    twice the reference's, at batch 8 no more than the reference's; no
+    collective of the step (the lookup, the tied head, the argmax) is as
+    large as the table."""
+    got = decode_counts[arch, rows]
+    coll = got["collectives"]
+    ref = got["reference"]["all_gather"]
+    gathered = coll.bytes_by_kind.get("all-gather", 0)
+    assert 0 < gathered <= (2 * ref if rows == 1 else ref), (gathered, ref)
+    assert max(coll.largest_by_kind.values()) < _table_bytes(
+        _smoke_bf16(arch))
+
+
+@pytest.mark.parametrize("fsdp", [True, False], ids=["fsdp", "nofsdp"])
+@pytest.mark.parametrize("rows", [1, B])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_lookup_path_gathers_no_table(arch, rows, fsdp):
+    """The lookup's forward and backward (the table's gradient reduced to
+    its own placements, as the train step does) on the fake (2, 4) world:
+    no collective as large as the table.  Under FSDP with the batch over
+    data the table's model block is gathered in D (V / model x D, FSDP's
+    gather of a weight) and its gradient reduce-scattered back; a batch of
+    one gathers (B, S, D) rows instead."""
+    import torch
+
+    from repro_torch.launch.shardings import (
+        batch_pspecs,
+        distribute,
+        param_pspecs,
+    )
+    from repro_torch.models.transformer import Batch, embed_inputs
+
+    cfg = _smoke_bf16(arch)
+    pol = _mesh_pol(fsdp)
+    fake = hlo_stats.DeviceOpsMode()
+    with dryrun.fake_world(DATA * MODEL):
+        mesh = make_host_mesh(DATA, MODEL, device="cpu")
+        with fake:
+            tree = {"embed": torch.zeros((cfg.vocab_size, cfg.d_model),
+                                         dtype=torch.bfloat16)}
+            table = distribute(tree, mesh, param_pspecs(cfg, tree,
+                                                        pol))["embed"]
+            tokens = distribute(
+                torch.zeros((rows, S), dtype=torch.int32), mesh,
+                batch_pspecs(cfg, pol, batch_sharded=rows > 1).tokens)
+        table.requires_grad_(True)
+        with fake.recording() as record:
+            out = embed_inputs({"embed": table}, cfg, Batch(tokens=tokens))
+            (grad,) = torch.autograd.grad(out.float().sum(), table)
+            grad = grad.redistribute(mesh, table.placements)
+    coll = record.collectives
+    assert coll.count_by_kind.get("all-reduce", 0) >= 1     # over model
+    assert max(coll.largest_by_kind.values()) < _table_bytes(cfg)
+    if fsdp and rows > 1:
+        block = cfg.vocab_size // MODEL * cfg.d_model * 2
+        assert coll.largest_by_kind["all-gather"] == block
+        assert coll.count_by_kind["reduce-scatter"] >= 1
+    assert tuple(grad.to_local().shape) == tuple(table.to_local().shape)
