@@ -5187,35 +5187,73 @@ def merged(intervals) -> list:
     return out
 
 
-class StageRange:
-    """Forwards a sequential runtime's round stage (and its ``prepare``)
-    inside a profiler range ``stage.<timing key>`` that ends after a device
-    synchronize, so every kernel the stage launched runs inside its range.
-    The sequential engine synchronizes after every stage anyway."""
-
-    def __init__(self, stage, key: str):
-        self._stage, self._key = stage, key
-
-    def __getattr__(self, attr):
-        value = getattr(self._stage, attr)
-        if attr == "prepare":
-            return functools.partial(self._ranged, value)
-        return value
-
-    def __call__(self, ctx):
-        self._ranged(self._stage, ctx)
-
-    def _ranged(self, fn, ctx):
-        import torch
-
-        with torch.profiler.record_function(f"stage.{self._key}"):
-            fn(ctx)
-            torch.cuda.synchronize()
+def intersect(a, b) -> list:
+    """The intersection of two lists of sorted disjoint intervals."""
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append([lo, hi])
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
 
 
-# the cohort stages a sequential profile splits out, by timing key
-PROFILED_STAGES = {"sampler": "sample", "local_trainer": "train",
-                   "validator": "validate"}
+def length(intervals) -> float:
+    return sum(hi - lo for lo, hi in intervals)
+
+
+GAP_NAMED_S = 0.010          # idle gaps this long or longer are listed
+
+
+def read_spans(busy, spans, unprofiled) -> dict:
+    """A profiled round read by the program's spans: ``busy``, the device's
+    busy intervals (sorted, disjoint; us); ``spans``, the mirrored host
+    ranges as (span name, start us, end us); ``unprofiled``, the stage
+    seconds of a round without the profiler.  See ``phase_profile``."""
+
+    def windows(name):
+        return merged((lo, hi) for n, lo, hi in spans if n == name)
+
+    stages = {}
+    for key in unprofiled:
+        inside = length(intersect(busy, windows(key))) / 1e6
+        stages[key] = {"ranges": sum(1 for n, _, _ in spans if n == key),
+                       "profiled_s": length(windows(key)) / 1e6,
+                       "device_busy_s": inside,
+                       "unprofiled_s": unprofiled[key],
+                       "busy_over_unprofiled": inside
+                       / max(unprofiled[key], 1e-9)}
+    lo = min(a for _, a, _ in spans)
+    hi = max(b for _, _, b in spans)
+    idle, edge = [], lo
+    for a, b in list(busy) + [[hi, hi]]:
+        if a > edge and edge < hi:
+            idle.append([edge, min(a, hi)])
+        edge = max(edge, b)
+    gaps, idle_by_span = [], {}
+    for a, b in idle:
+        mid = (a + b) / 2
+        # the innermost span: the latest to start, then the shortest
+        around = [(s_lo, s_lo - s_hi, name) for name, s_lo, s_hi in spans
+                  if s_lo <= mid <= s_hi]
+        name = max(around)[2] if around else "between_spans"
+        idle_by_span[name] = idle_by_span.get(name, 0.0) + (b - a) / 1e6
+        if b - a >= GAP_NAMED_S * 1e6:
+            gaps.append({"span": name, "s": (b - a) / 1e6})
+    idle_train = intersect(idle, windows("train"))
+    host_copy = merged((a, b) for n, a, b in spans
+                       if n in ("train.draw", "h2d"))
+    in_draw_h2d = length(intersect(idle_train, host_copy)) / 1e6
+    return {"stages": stages,
+            "gaps": sorted(gaps, key=lambda g: -g["s"]),
+            "idle_by_span": idle_by_span,
+            "train_idle": {"idle_s": length(idle_train) / 1e6,
+                           "in_draw_or_h2d_s": in_draw_h2d,
+                           "share": in_draw_h2d
+                           / max(length(idle_train) / 1e6, 1e-12)}}
 
 
 def phase_profile(path: str, rt) -> None:
@@ -5225,62 +5263,57 @@ def phase_profile(path: str, rt) -> None:
     them).  Profiling adds host time, so ``idle_share`` (against the
     profiled round) is an upper bound; ``busy_over_unprofiled`` holds the
     same device time against the runtime's last round without the
-    profiler.  A sequential runtime's sample / train / validate stages
-    also report the device time inside their ranges against their
-    unprofiled seconds: near 1, the card paces the stage; well under 1,
-    the host does."""
+    profiler.
+
+    The program mirrors its spans into the trace as host ranges
+    ``bflc.<span>`` (``repro_torch.spans``), on the clock of the device's
+    operations, in any schedule.  ``stages``: the device time inside each
+    stage's ranges against its unprofiled seconds (near 1, the card paces
+    the stage; well under 1, the host does; the sequential engine's stage
+    ranges end after its synchronize).  ``gaps``: each idle gap of the
+    device of ``GAP_NAMED_S`` or more, named by the innermost span around
+    its middle, and ``idle_by_span`` all idle time so named.
+    ``train_idle``: the idle time inside ``bflc.train`` and the share of
+    it inside ``bflc.train.draw`` or ``bflc.h2d``; ``ranges``: the
+    mirrored ranges of the round."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.spans import PREFIX
+
     unprofiled = dict(rt.stage_timings[-1])
-    wrapped = {}
-    if rt.schedule == "sequential":
-        for kind, key in PROFILED_STAGES.items():
-            wrapped[kind] = getattr(rt.pipeline, kind)
-            setattr(rt.pipeline, kind, StageRange(wrapped[kind], key))
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rt.run_round()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for kind, stage in wrapped.items():
-            setattr(rt.pipeline, kind, stage)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profiled = rt.stage_timings[-1]
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation]
     # kernels of one stream overlap where a launch starts before the one
     # ahead of it ends, so busy time is the union of their intervals
     busy = merged((e.time_range.start, e.time_range.end) for e in device)
-    busy_s = sum(hi - lo for lo, hi in busy) / 1e6
+    busy_s = length(busy) / 1e6
     by_name = {}
     for e in device:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
-    stages = {}
-    for key in (PROFILED_STAGES.values() if wrapped else ()):
-        windows = merged((e.time_range.start, e.time_range.end) for e in events
-                         if e.device_type == DeviceType.CPU
-                         and e.name == f"stage.{key}")
-        inside = sum(max(0, min(b, hi) - max(a, lo))
-                     for a, b in busy for lo, hi in windows)
-        stages[key] = {"ranges": len(windows),
-                       "profiled_s": sum(hi - lo for lo, hi in windows) / 1e6,
-                       "device_busy_s": inside / 1e6,
-                       "unprofiled_s": unprofiled.get(key, 0.0),
-                       "busy_over_unprofiled": inside / 1e6
-                       / max(unprofiled.get(key, 0.0), 1e-9)}
+    spans = [(e.name[len(PREFIX):], e.time_range.start, e.time_range.end)
+             for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith(PREFIX)]
+    check(bool(spans), f"profile {path}: no {PREFIX}* range")
+    reading = read_spans(busy, spans, unprofiled)
     round_s = sum(unprofiled.values())
     emit(phase="profile", path=path, schedule=rt.schedule, wall_s=wall,
          device_busy_s=busy_s, idle_share=1.0 - busy_s / wall,
          kernel_sum_s=sum(us for us, _ in by_name.values()) / 1e6,
          unprofiled_round_s=round_s, busy_over_unprofiled=busy_s / round_s,
-         stages=stages, timings=rt.stage_timings[-1],
+         **reading, ranges=len(spans), timings=profiled,
          top=[{"kernel": k[:120], "us": us, "count": n}
               for k, (us, n) in top])
 

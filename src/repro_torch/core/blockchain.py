@@ -25,6 +25,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.spans import count, span
 from repro_torch.tree import tree_leaves, tree_paths
 
 MODEL = "model"
@@ -39,14 +40,21 @@ def _as_numpy(leaf: Any) -> np.ndarray:
 
 
 def pytree_digest(tree: Any) -> str:
-    h = hashlib.sha256()
-    for path, leaf in tree_paths(tree):
-        arr = _as_numpy(leaf)
-        h.update(repr(path).encode())
-        h.update(arr.dtype.str.encode())
-        h.update(str(arr.shape).encode())
-        h.update(np.ascontiguousarray(arr).tobytes())
-    return h.hexdigest()
+    """SHA-256 over each leaf's key path, dtype, shape and bytes (host
+    copies of device leaves).  In a recorded round the call is the span
+    ``chain.digest`` and counts the leaves' bytes (``chain_hashed_bytes``)."""
+    with span("chain.digest"):
+        h = hashlib.sha256()
+        hashed = 0
+        for path, leaf in tree_paths(tree):
+            arr = _as_numpy(leaf)
+            h.update(repr(path).encode())
+            h.update(arr.dtype.str.encode())
+            h.update(str(arr.shape).encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
+            hashed += arr.nbytes
+        count("chain_hashed_bytes", hashed)
+        return h.hexdigest()
 
 
 @dataclass

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.spans import count, span
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` checked and set up.  A numbered card (``"cuda:<i>"``, a
@@ -55,12 +57,16 @@ def to_device(array: np.ndarray, device) -> torch.Tensor:
     in pinned memory and copied with ``non_blocking=True``: the call does
     not wait for the stream, and the stream orders the copy before every
     kernel queued after it.  PyTorch's pinned-memory cache keeps the
-    staging buffer until the copy has run."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
+    staging buffer until the copy has run.  In a recorded round the call
+    is the span ``h2d`` and counts the array's bytes (``h2d_bytes``)."""
+    with span("h2d"):
+        array = np.ascontiguousarray(array)
+        count("h2d_bytes", array.nbytes)
+        t = torch.from_numpy(array)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
 
 
 class HostCopy:

@@ -52,8 +52,10 @@ Design
   poisoned cohort (the attacks run in numpy), ``validate_finalize``'s
   score event, the tail's chain digests, and one final synchronize in
   the reward node.  Each node's host time goes into ``ctx.timings``
-  under the sequential engine's ``STAGE_TIMING_KEYS``; device time that
-  overlaps lands in whichever bucket waited for it.
+  under the sequential engine's ``STAGE_TIMING_KEYS`` as a stage span of
+  that key (``repro_torch.spans.stage``), so the stages' own spans nest
+  in it as in the sequential engine; device time that overlaps lands in
+  whichever bucket waited for it.
 * **Ranks.**  With a mesh (``repro_torch.fl.sharded``) the sharded
   trainer's dispatch / finalize are ring nodes like any other, and its
   finalize and the sharded validators' dispatch gather over the ranks.
@@ -73,12 +75,12 @@ order.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.device import synchronize
 from repro_torch.fl.pipeline import RoundContext, RoundPipeline, STAGE_TIMING_KEYS
+from repro_torch.spans import stage
 
 # per-cohort RoundContext fields staged between ring slots and the shared
 # context around every node
@@ -346,22 +348,19 @@ class _AsyncRoundRun:
 
     def _exec(self, node: StageNode) -> None:
         ctx = self.ctx
-        t0 = time.perf_counter()
         slot = node.slot
-        if slot is not None:
-            for f in SLOT_FIELDS:
-                setattr(ctx, f, getattr(slot, f))
-        try:
-            node.fn(ctx)
-        finally:
+        with stage(node.bucket, ctx.timings):
             if slot is not None:
                 for f in SLOT_FIELDS:
-                    setattr(slot, f, getattr(ctx, f))
-        node.done = True
-        self.executed.append(node.key)
-        ctx.timings[node.bucket] = (
-            ctx.timings.get(node.bucket, 0.0) + (time.perf_counter() - t0)
-        )
+                    setattr(ctx, f, getattr(slot, f))
+            try:
+                node.fn(ctx)
+            finally:
+                if slot is not None:
+                    for f in SLOT_FIELDS:
+                        setattr(slot, f, getattr(ctx, f))
+            node.done = True
+            self.executed.append(node.key)
         if node.kind == "sample":
             self._after_sample(node)
         elif node.kind == "validate_finalize":

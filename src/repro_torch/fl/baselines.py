@@ -12,7 +12,8 @@ Both entry points run on ``device`` ("cuda" by default; they raise when
 CUDA is absent unless ``device="cpu"``).  ``FLTrainer`` takes
 ``schedule="async"`` (``repro_torch.fl.async_engine``) and
 ``mesh=make_round_mesh(n)``, which trains each cohort with the sharded
-trainer (``repro_torch.fl.sharded``).
+trainer (``repro_torch.fl.sharded``).  Each round's spans are recorded
+(``repro_torch.spans``), as in ``BFLCRuntime``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.fl.pipeline import (
     build_pipeline,
 )
 from repro_torch.fl.runtime import check_schedule_and_mesh, runtime_device
+from repro_torch.spans import Recorder, recording
 from repro_torch.tree import tree_map
 
 
@@ -72,6 +74,7 @@ class FLTrainer:
                  schedule: str = "sequential", device="cuda"):
         check_schedule_and_mesh(mesh, schedule)
         self.device = runtime_device(device, mesh)
+        self.recorder = Recorder(self.device)
         self.adapter = adapter
         self.data = dataset
         self.cfg = cfg
@@ -117,9 +120,10 @@ class FLTrainer:
             mesh=self.mesh,
             sharded_train_fn=self._sharded_train,
         )
-        self.pipeline.run(ctx)
+        with recording(self.recorder):
+            self.pipeline.run(ctx)
         self.params = ctx.new_params
-        self.stage_timings.append(dict(ctx.timings))
+        self.stage_timings.append(self.recorder.entry(ctx.timings))
         self._round += 1
 
     def run(self, rounds: int, eval_every: int = 5) -> List[float]:

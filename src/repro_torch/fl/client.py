@@ -35,6 +35,7 @@ from repro_torch.device import to_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
 from repro_torch.launch.shardings import round_engine_pspecs
+from repro_torch.spans import span
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map, tree_stack
 
 
@@ -129,10 +130,12 @@ def make_score_matrix_fn(adapter: ModelAdapter):
     def score(params, updates, vx, vy):
         P = tree_leaves(updates)[0].shape[0]
         rows = []
-        for i in range(P):
-            candidate = tree_map(lambda p, u: p + u[i].to(p.dtype), params, updates)
-            rows.append(per_member(candidate, vx, vy))
-        return torch.stack(rows)
+        with span("validate.score", device=True):
+            for i in range(P):
+                candidate = tree_map(lambda p, u: p + u[i].to(p.dtype),
+                                     params, updates)
+                rows.append(per_member(candidate, vx, vy))
+            return torch.stack(rows)
 
     return score
 
@@ -165,8 +168,9 @@ def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
     def score(params, stack, vx, vy):
         q, s, D = quantize_stack(stack)
         cands = candidates_from_quantized(ravel_pytree(params)[0], q, s, D)
-        scores = torch.stack([per_member(unravel(cands[i]), vx, vy)
-                              for i in range(cands.shape[0])])
+        with span("validate.score", device=True):
+            scores = torch.stack([per_member(unravel(cands[i]), vx, vy)
+                                  for i in range(cands.shape[0])])
         return scores, q, s
 
     return score

@@ -11,7 +11,9 @@ Port of ``repro/fl/pipeline.py``:
   qualified updates are collected, then runs pack -> aggregate -> elect ->
   reward once, timing every stage into ``ctx.timings``.  After each stage
   it waits for the device (``torch.cuda.synchronize`` on CUDA), so each
-  bucket holds its own work.
+  bucket holds its own work.  Each stage's timing is its span
+  (``repro_torch.spans.stage``); inside it the batch draw, the local
+  steps and the consensus are spans of their own.
 * The trainer and the committee validators are split into ``dispatch``
   (host rng draws and device launches) and ``finalize`` (the host work
   that reads the results); ``__call__`` runs both back to back.
@@ -31,7 +33,6 @@ and ``fused_int8_sharded`` (``repro_torch.fl`` imports both).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Set
 
@@ -49,6 +50,7 @@ from repro_torch.core.consensus import CommitteeConsensus, ValidationRecord
 from repro_torch.core.incentive import distribute_rewards
 from repro_torch.device import HostCopy, synchronize, to_device
 from repro_torch.fl.client import sample_client_batches
+from repro_torch.spans import span, stage
 from repro_torch.tree import tree_stack, tree_unstack
 
 
@@ -237,12 +239,11 @@ class RoundPipeline:
     max_cohorts: int = 3
 
     def _timed(self, key: str, fn: Callable, ctx: RoundContext) -> None:
-        t0 = time.perf_counter()
-        fn(ctx)
-        # kernels and PyTorch ops return before the device finishes: wait,
-        # so each stage's device work lands in its own bucket
-        synchronize(ctx.device)
-        ctx.timings[key] = ctx.timings.get(key, 0.0) + (time.perf_counter() - t0)
+        with stage(key, ctx.timings):
+            fn(ctx)
+            # kernels and PyTorch ops return before the device finishes:
+            # wait, so each stage's device work lands in its own bucket
+            synchronize(ctx.device)
 
     def run(self, ctx: RoundContext) -> RoundContext:
         prepare = getattr(self.validator, "prepare", None)
@@ -372,14 +373,15 @@ def draw_cohort_batches(ctx: RoundContext):
     (P, steps, b) — one host rng draw per trainer, in ``ctx.trainers``
     order, as the reference draws them."""
     cfg, rng = ctx.cfg, ctx.rng
-    pairs = [
-        sample_client_batches(
-            rng, ctx.data.client_images[i], ctx.data.client_labels[i],
-            cfg.local_steps, cfg.local_batch,
-        )
-        for i in ctx.trainers
-    ]
-    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+    with span("train.draw"):
+        pairs = [
+            sample_client_batches(
+                rng, ctx.data.client_images[i], ctx.data.client_labels[i],
+                cfg.local_steps, cfg.local_batch,
+            )
+            for i in ctx.trainers
+        ]
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
 
 def sample_cohort_batches(ctx: RoundContext):
@@ -416,7 +418,8 @@ class LocalSGDTrainer:
 
     def dispatch(self, ctx: RoundContext) -> None:
         xs, ys = sample_cohort_batches(ctx)
-        ctx.train_inflight = ctx.local_train_fn(ctx.params, xs, ys)
+        with span("train.steps", device=True):
+            ctx.train_inflight = ctx.local_train_fn(ctx.params, xs, ys)
         ctx.cohort_stacked = None          # one device: no sharded stack
 
     def finalize(self, ctx: RoundContext) -> None:
@@ -477,27 +480,28 @@ class CommitteeValidator:
     def finalize(self, ctx: RoundContext) -> None:
         cfg, rng = ctx.cfg, ctx.rng
         honest_scores = ctx.cohort_scores.wait().numpy()   # (P, Q)
-        ctx.cohort_scores = honest_scores
-        for i, uploader in enumerate(ctx.trainers):
-            row = {}
-            for j, member in enumerate(ctx.round_committee):
-                s = float(honest_scores[i, j])
-                if cfg.collusion:
-                    s = ctx.collusion.score(
-                        rng,
-                        ctx.manager.nodes[member].is_malicious,
-                        ctx.manager.nodes[uploader].is_malicious,
-                        s,
-                    )
-                row[member] = s
-            ctx.score_table[uploader] = row
-        for idx, uploader in enumerate(ctx.trainers):
-            ctx.consensus.validate(uploader, uploader)
-            ctx.updates[uploader] = ctx.cohort_updates[idx]
-        ctx.trainers_total += ctx.trainers
-        # the paper's aggregation trigger: k QUALIFIED updates
-        if len(ctx.consensus.accepted_records()) >= cfg.k_updates:
-            ctx.collected = True
+        with span("validate.consensus"):
+            ctx.cohort_scores = honest_scores
+            for i, uploader in enumerate(ctx.trainers):
+                row = {}
+                for j, member in enumerate(ctx.round_committee):
+                    s = float(honest_scores[i, j])
+                    if cfg.collusion:
+                        s = ctx.collusion.score(
+                            rng,
+                            ctx.manager.nodes[member].is_malicious,
+                            ctx.manager.nodes[uploader].is_malicious,
+                            s,
+                        )
+                    row[member] = s
+                ctx.score_table[uploader] = row
+            for idx, uploader in enumerate(ctx.trainers):
+                ctx.consensus.validate(uploader, uploader)
+                ctx.updates[uploader] = ctx.cohort_updates[idx]
+            ctx.trainers_total += ctx.trainers
+            # the paper's aggregation trigger: k QUALIFIED updates
+            if len(ctx.consensus.accepted_records()) >= cfg.k_updates:
+                ctx.collected = True
 
     def __call__(self, ctx: RoundContext) -> None:
         self.dispatch(ctx)

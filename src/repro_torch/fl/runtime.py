@@ -20,6 +20,9 @@ sequential engine.  ``mesh=make_round_mesh(n)`` runs the sharded engine
 of ``repro_torch.fl.sharded`` on each of the n ranks: every rank builds
 the same runtime from the same seed, and the device work is split over
 the ranks.
+
+Each round is recorded (``repro_torch.spans``): its ``stage_timings``
+entry carries the round's spans and counters besides the stage seconds.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from repro_torch.kernels.ops import (
     make_quantize_stack_sharded,
 )
 from repro_torch.launch.mesh import RoundMesh
+from repro_torch.spans import Recorder, recording
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -170,6 +174,7 @@ class BFLCRuntime:
     ):
         _check_config(cfg, mesh, schedule)
         self.device = runtime_device(device, mesh)
+        self.recorder = Recorder(self.device)
         self.adapter = adapter
         self.data = dataset
         self.cfg = cfg
@@ -314,7 +319,8 @@ class BFLCRuntime:
             ctx.hier = HierState(tiers=self.cfg.tiers,
                                  inner_validator=self._hier_inner,
                                  dim=self._dim)
-        self.pipeline.run(ctx)
+        with recording(self.recorder):
+            self.pipeline.run(ctx)
         self.committee = ctx.committee
         if ctx.hier is not None:
             self.hier_logs.append({
@@ -342,7 +348,7 @@ class BFLCRuntime:
             test_accuracy=self.evaluate() if eval_test else None,
         )
         self.logs.append(log)
-        self.stage_timings.append(dict(ctx.timings))
+        self.stage_timings.append(self.recorder.entry(ctx.timings))
         return log
 
     def run(self, rounds: int, eval_every: int = 5) -> List[RoundLog]:
