@@ -58,12 +58,17 @@ def to_device(array: np.ndarray, device) -> torch.Tensor:
     not wait for the stream, and the stream orders the copy before every
     kernel queued after it.  PyTorch's pinned-memory cache keeps the
     staging buffer until the copy has run.  In a recorded round the call
-    is the span ``h2d`` and counts the array's bytes (``h2d_bytes``)."""
+    is the span ``h2d`` and counts the array's bytes (``h2d_bytes``).  A
+    tensor already on ``device`` is returned as it is: nothing is copied
+    or counted."""
+    dev = torch.device(device)
+    if isinstance(array, torch.Tensor) and array.device.type == dev.type \
+            and dev.index in (None, array.device.index):
+        return array
     with span("h2d"):
         array = np.ascontiguousarray(array)
         count("h2d_bytes", array.nbytes)
         t = torch.from_numpy(array)
-        dev = torch.device(device)
         if dev.type == "cuda":
             return t.pin_memory().to(dev, non_blocking=True)
         return t.to(dev)

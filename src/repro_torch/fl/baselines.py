@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.fl.async_engine import AsyncRoundPipeline
 from repro_torch.fl.client import (
+    DeviceCommunity,
     make_eval_fn,
     make_local_train_fn,
     make_sharded_local_train_fn,
@@ -88,6 +89,7 @@ class FLTrainer:
         if initial_params is None:
             initial_params = adapter.init(torch.Generator().manual_seed(cfg.seed))
         self.params = _on_device(initial_params, self.device)
+        self.community = DeviceCommunity(dataset, self.device)
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
         self._eval = make_eval_fn(adapter, self.device)
         self.mesh = mesh
@@ -116,6 +118,7 @@ class FLTrainer:
             round=self._round,
             device=self.device,
             malicious=self.malicious,
+            community=self.community,
             local_train_fn=self._local_train,
             mesh=self.mesh,
             sharded_train_fn=self._sharded_train,

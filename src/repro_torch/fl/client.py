@@ -31,11 +31,12 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from repro_torch.data.virtual import VirtualFederatedDataset
 from repro_torch.device import to_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
 from repro_torch.launch.shardings import round_engine_pspecs
-from repro_torch.spans import span
+from repro_torch.spans import count, span
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map, tree_stack
 
 
@@ -99,17 +100,18 @@ def make_sharded_local_train_fn(adapter: ModelAdapter, lr: float, mesh,
     """The P-client batched program on this rank's block of clients.
 
     ``train(params, xs, ys)``: xs (P, steps, batch, ...) and ys (P, steps,
-    batch) are the cohort's host batches, which every rank draws alike;
-    the rank copies only its block of clients (split as
-    ``round_engine_pspecs()["clients"]`` names) to ``mesh.device`` and
-    returns that block's update tree.  The caller pads P to a multiple of
-    the mesh size.  A client's row does not depend on the other rows of
-    its call, so the block's rows are the single-device program's bit for
-    bit and padded rows leave the real ones unchanged."""
+    batch) are the cohort's batches, which every rank draws alike (the
+    round's on ``mesh.device``, or host arrays, of which the rank copies
+    only its block); the rank trains its block of clients (split as
+    ``round_engine_pspecs()["clients"]`` names) and returns that block's
+    update tree.  The caller pads P to a multiple of the mesh size.  A
+    client's row does not depend on the other rows of its call, so the
+    block's rows are the single-device program's bit for bit and padded
+    rows leave the real ones unchanged."""
     batched = make_local_train_fn(adapter, lr, momentum)
     split = round_engine_pspecs()["clients"]
 
-    def train(params, xs: np.ndarray, ys: np.ndarray):
+    def train(params, xs, ys):
         return batched(params, to_device(mesh.shard(xs, split), mesh.device),
                        to_device(mesh.shard(ys, split), mesh.device))
 
@@ -228,3 +230,91 @@ def sample_client_batches(
 ) -> Tuple[np.ndarray, np.ndarray]:
     idx = rng.integers(0, len(labels), (steps, batch))
     return images[idx], labels[idx]
+
+
+class DeviceCommunity:
+    """A community's training shards, held on the round's device.
+
+    Every shard's rows lie in one flat tensor each for images and labels
+    (the shards' own dtype and trailing shape: float32 images, int32
+    labels, int32 token rows), client ``i`` at rows ``offsets[i]`` to
+    ``offsets[i] + sizes[i]``.  A ``VirtualFederatedDataset`` is stored as
+    its base: virtual client ``i`` reads base shard ``i % base.num_clients``.
+
+    ``draw`` makes each client's host rng draw of ``sample_client_batches``
+    (the same call, so the same stream) and moves it by the client's offset;
+    ``gather`` reads those rows on the device.  A batch is thus the same
+    bits as the host's fancy-index gather, and only the indices cross to
+    the device.  The shards are copied in runs of about ``CHUNK_BYTES``, so
+    the host never holds a second whole copy; a community that does not fit
+    on the device raises at build with its byte count."""
+
+    CHUNK_BYTES = 64 << 20
+
+    def __init__(self, data, device):
+        self.virtual = isinstance(data, VirtualFederatedDataset)
+        base = data.base if self.virtual else data
+        images, labels = base.client_images, base.client_labels
+        self.sizes = np.array([len(y) for y in labels], np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)[:-1]])
+        rows = int(self.sizes.sum())
+        self.nbytes = (sum(x.nbytes for x in images)
+                       + sum(y.nbytes for y in labels))
+        device = torch.device(device)
+        try:
+            self.images, self.labels = (
+                torch.empty((rows,) + shards[0].shape[1:],
+                            dtype=torch.from_numpy(shards[0]).dtype,
+                            device=device)
+                for shards in (images, labels))
+        except torch.OutOfMemoryError as e:
+            raise RuntimeError(
+                f"the community's training shards ({rows} rows, "
+                f"{self.nbytes} bytes) do not fit on {device}") from e
+        # a run is concatenated into pinned memory and copied without
+        # waiting; PyTorch's pinned-memory cache keeps each buffer until
+        # its copy has run (on the CPU the run lands in place)
+        pinned = device.type == "cuda"
+        for lo, hi in self._runs(self.nbytes // max(rows, 1)):
+            a = int(self.offsets[lo])
+            b = int(self.offsets[hi - 1] + self.sizes[hi - 1])
+            for dst, shards in ((self.images, images), (self.labels, labels)):
+                host = (torch.empty(dst[a:b].shape, dtype=dst.dtype,
+                                    pin_memory=True) if pinned else dst[a:b])
+                np.concatenate([shards[i] for i in range(lo, hi)],
+                               out=host.numpy())
+                if pinned:
+                    dst[a:b].copy_(host, non_blocking=True)
+
+    def _runs(self, row_bytes: int):
+        """Consecutive shards in runs of about ``CHUNK_BYTES`` (a larger
+        shard is a run of its own)."""
+        lo, acc = 0, 0
+        for i, n in enumerate(self.sizes):
+            acc += int(n) * row_bytes
+            if acc >= self.CHUNK_BYTES:
+                yield lo, i + 1
+                lo, acc = i + 1, 0
+        if lo < len(self.sizes):
+            yield lo, len(self.sizes)
+
+    def draw(self, rng: np.random.Generator, clients, steps: int,
+             batch: int) -> np.ndarray:
+        """(len(clients), steps, batch) int64 rows of the store: for each
+        client in order, ``rng.integers(0, n_i, (steps, batch))`` plus its
+        offset."""
+        slots = np.asarray(clients, np.int64)
+        if self.virtual:
+            slots = slots % len(self.sizes)
+        return np.stack([self.offsets[s]
+                         + rng.integers(0, int(self.sizes[s]), (steps, batch))
+                         for s in slots])
+
+    def gather(self, idx: torch.Tensor):
+        """The rows ``idx`` (on the store's device) of images and labels,
+        shaped ``idx.shape`` + the rows' trailing shape.  Counts the rows
+        (``gathered_rows``)."""
+        flat = idx.reshape(-1)
+        count("gathered_rows", flat.numel())
+        return tuple(t.index_select(0, flat).reshape(idx.shape + t.shape[1:])
+                     for t in (self.images, self.labels))

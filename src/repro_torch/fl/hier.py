@@ -43,8 +43,6 @@ import torch
 
 from repro_torch.core.aggregation import aggregate_pytrees, flatten_updates
 from repro_torch.core.consensus import CommitteeConsensus
-from repro_torch.device import to_device
-from repro_torch.fl.client import sample_client_batches
 from repro_torch.fl.pipeline import (
     RoundContext,
     build_pipeline,
@@ -52,6 +50,7 @@ from repro_torch.fl.pipeline import (
     default_stage_names,
     register,
     resolve,
+    sample_member_batches,
 )
 from repro_torch.fl.sharded import _pad_cached_to_shards, score_rows
 from repro_torch.tree import tree_leaves, tree_stack
@@ -233,19 +232,10 @@ class HierValidator:
 
     def prepare(self, ctx: RoundContext) -> None:
         st = _require_hier(ctx, "hier validator")
-        cfg, rng = ctx.cfg, ctx.rng
         # tier-2 validation data: one batch per round-committee member,
         # drawn before any slice, so the draw order does not depend on how
         # many slices ran
-        vpairs = [
-            sample_client_batches(
-                rng, ctx.data.client_images[j], ctx.data.client_labels[j],
-                1, cfg.val_batch,
-            )
-            for j in ctx.round_committee
-        ]
-        st.val_x2 = to_device(np.stack([p[0][0] for p in vpairs]), ctx.device)
-        st.val_y2 = to_device(np.stack([p[1][0] for p in vpairs]), ctx.device)
+        st.val_x2, st.val_y2 = sample_member_batches(ctx, ctx.round_committee)
 
     # dispatch runs the inner validator's prepare, which draws the slice's
     # validation batches from the host rng

@@ -49,7 +49,6 @@ from repro_torch.core.attacks import ATTACKS
 from repro_torch.core.consensus import CommitteeConsensus, ValidationRecord
 from repro_torch.core.incentive import distribute_rewards
 from repro_torch.device import HostCopy, synchronize, to_device
-from repro_torch.fl.client import sample_client_batches
 from repro_torch.spans import span, stage
 from repro_torch.tree import tree_stack, tree_unstack
 
@@ -77,6 +76,7 @@ class RoundContext:
     q_committee: int = 0
     p_trainers: int = 0
     # batched helpers (built once by the runtime, shared across rounds)
+    community: Any = None                  # DeviceCommunity: data's shards
     local_train_fn: Any = None
     score_matrix_fn: Any = None
     int8_score_fn: Any = None              # fused int8 scorer
@@ -368,26 +368,38 @@ def sample_uniform(ctx: RoundContext) -> None:
     ctx.trainers = ctx.rng.choice(n, m, replace=False).tolist()
 
 
-def draw_cohort_batches(ctx: RoundContext):
-    """The cohort's stacked local batches on the host: (P, steps, b, ...),
-    (P, steps, b) — one host rng draw per trainer, in ``ctx.trainers``
-    order, as the reference draws them."""
-    cfg, rng = ctx.cfg, ctx.rng
-    with span("train.draw"):
-        pairs = [
-            sample_client_batches(
-                rng, ctx.data.client_images[i], ctx.data.client_labels[i],
-                cfg.local_steps, cfg.local_batch,
-            )
-            for i in ctx.trainers
-        ]
-        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+def _community(ctx: RoundContext):
+    if ctx.community is None:
+        raise RuntimeError(
+            "the batch draw needs ctx.community, the training shards on the "
+            "device (repro_torch.fl.client.DeviceCommunity), which the "
+            "runtime builds")
+    return ctx.community
 
 
 def sample_cohort_batches(ctx: RoundContext):
-    """``draw_cohort_batches`` on the device."""
-    xs, ys = draw_cohort_batches(ctx)
-    return to_device(xs, ctx.device), to_device(ys, ctx.device)
+    """The cohort's stacked local batches on the device: (P, steps, b, ...),
+    (P, steps, b).  One host rng draw of indices per trainer, in
+    ``ctx.trainers`` order, as the reference draws its batches; only the
+    indices are copied over (the span ``h2d``), and the rows are gathered
+    on the device from ``ctx.community``; the draw and the gather are the
+    span ``train.draw``."""
+    cfg, store = ctx.cfg, _community(ctx)
+    with span("train.draw"):
+        idx = store.draw(ctx.rng, ctx.trainers, cfg.local_steps,
+                         cfg.local_batch)
+    idx = to_device(idx, ctx.device)
+    with span("train.draw"):
+        return store.gather(idx)
+
+
+def sample_member_batches(ctx: RoundContext, members: List[int]):
+    """Each member's validation batch on the device: (Q, val_batch, ...),
+    (Q, val_batch), one host rng draw of indices per member in order,
+    gathered from ``ctx.community`` as the cohort's batches are."""
+    store = _community(ctx)
+    idx = store.draw(ctx.rng, members, 1, ctx.cfg.val_batch)[:, 0]
+    return store.gather(to_device(idx, ctx.device))
 
 
 def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> List[int]:
@@ -453,18 +465,9 @@ class CommitteeValidator:
     dispatch_uses_rng = False
 
     def prepare(self, ctx: RoundContext) -> None:
-        cfg, rng = ctx.cfg, ctx.rng
-        vpairs = [
-            sample_client_batches(
-                rng, ctx.data.client_images[j], ctx.data.client_labels[j],
-                1, cfg.val_batch,
-            )
-            for j in ctx.round_committee
-        ]
-        ctx.val_x = to_device(np.stack([p[0][0] for p in vpairs]), ctx.device)
-        ctx.val_y = to_device(np.stack([p[1][0] for p in vpairs]), ctx.device)
+        ctx.val_x, ctx.val_y = sample_member_batches(ctx, ctx.round_committee)
         ctx.consensus = CommitteeConsensus(
-            ctx.round_committee, accept_threshold=cfg.accept_threshold
+            ctx.round_committee, accept_threshold=ctx.cfg.accept_threshold
         )
         ctx.consensus.bind_score_table(ctx.score_table)
 

@@ -41,6 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.fl.async_engine import AsyncRoundPipeline
 from repro_torch.fl.client import (
+    DeviceCommunity,
     make_eval_fn,
     make_local_train_fn,
     make_score_from_int8_fn,
@@ -214,6 +215,8 @@ class BFLCRuntime:
         # flat update dimension D, for the tiered round's byte accounting
         self._dim = sum(leaf.numel() for leaf in tree_leaves(params))
 
+        # the training shards on the device, for the rounds' batch draws
+        self.community = DeviceCommunity(dataset, self.device)
         # batched helpers
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
         self._score_matrix = make_score_matrix_fn(adapter)
@@ -304,6 +307,7 @@ class BFLCRuntime:
             committee=list(committee),
             q_committee=self.q_committee,
             p_trainers=self.p_trainers,
+            community=self.community,
             local_train_fn=self._local_train,
             score_matrix_fn=self._score_matrix,
             int8_score_fn=self._int8_score,

@@ -52,9 +52,9 @@ from repro_torch.fl.pipeline import (
     _set_packed,
     cache_row_quant,
     cached_row_stack,
-    draw_cohort_batches,
     poison_cohort_updates,
     register,
+    sample_cohort_batches,
 )
 from repro_torch.kernels.ops import padded_dim_sharded
 from repro_torch.kernels.tiling import BLOCK_D
@@ -97,8 +97,9 @@ def _pad_rows(tree, n: int, ndev: int):
     return tree_map(grow, tree)
 
 
-def _pad_clients(xs: np.ndarray, ys: np.ndarray, ndev: int):
-    """The trainer's batch padding: one ``_pad_rows`` over the (xs, ys) pair."""
+def _pad_clients(xs, ys, ndev: int):
+    """The trainer's batch padding: one ``_pad_rows`` over the (xs, ys)
+    pair (tensors or numpy arrays)."""
     P = xs.shape[0]
     xs, ys = _pad_rows((xs, ys), P, ndev)
     return xs, ys, P
@@ -121,15 +122,16 @@ def score_rows(ctx: RoundContext, score_fn, stacked, n: int, vx, vy):
 class ShardedLocalSGDTrainer(LocalSGDTrainer):
     """(2, sharded) cohort-batched local SGD, the clients split over the
     mesh's ranks.  ``dispatch`` draws the batches (every rank draws all of
-    them, so the rng stream is the sequential one), pads them to the mesh
-    and launches the rank's block, which stays on the rank as
-    ``ctx.cohort_stacked`` for the sharded validator; ``finalize`` gathers
-    the update stack, drops the padded rows and injects the attacks."""
+    them from its own device's copy of the community, so the rng stream is
+    the sequential one), pads them to the mesh and launches the rank's
+    block, which stays on the rank as ``ctx.cohort_stacked`` for the
+    sharded validator; ``finalize`` gathers the update stack, drops the
+    padded rows and injects the attacks."""
 
     def dispatch(self, ctx: RoundContext) -> None:
         train_fn = _require(ctx, "sharded_train_fn", "local_sgd_sharded")
         mesh = _require(ctx, "mesh", "local_sgd_sharded")
-        xs, ys = draw_cohort_batches(ctx)
+        xs, ys = sample_cohort_batches(ctx)
         xs, ys, _ = _pad_clients(xs, ys, mesh.size)
         block = train_fn(ctx.params, xs, ys)
         ctx.cohort_stacked = block

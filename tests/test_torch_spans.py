@@ -209,13 +209,15 @@ def test_h2d_bytes_are_the_rounds_batches(tiny_ds, cfg):
     committee = list(rt.committee)
     log = rt.run_round()
     counts = rt.stage_timings[0].counts
-    row = tiny_ds.client_images[0][0].nbytes + tiny_ds.client_labels[0][:1].nbytes
     c = rt.cfg
-    trainers = log.trainers * c.local_steps * c.local_batch * row
-    members = len(committee) * c.val_batch * row
+    # the batches are gathered on the device: only their int64 row
+    # indices go over
+    trainers = log.trainers * c.local_steps * c.local_batch
+    members = len(committee) * c.val_batch
     # the aggregation's score weights go over too: k float32
     weights = c.k_updates * 4
-    assert counts["h2d_bytes"] == trainers + members + weights
+    assert counts["h2d_bytes"] == 8 * (trainers + members) + weights
+    assert counts["gathered_rows"] == trainers + members
 
 
 @pytest.mark.parametrize("cfg", (INT8, SMALL), ids=("int8", "f32"))
