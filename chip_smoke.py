@@ -305,8 +305,9 @@ Phases, one JSON line each:
                     verify(), the read-back, every committed model bit for
                     bit the old one plus the plain fused fedavg of its
                     blobs, round 0's scores not all tied, exact launches of
-                    quantize_stack, fused_candidates, fused_agg and
-                    dequantize at D = 116,411,136, a cohort's rows bit for
+                    the streamed round (a quantize and a fused_candidates a
+                    client), fused_agg and dequantize at D = 116,411,136,
+                    a cohort's rows bit for
                     bit in calls of P, P / 2 and 1 (each client trains in a
                     call of its own); ``lm_train_cost`` half the cohort's
                     training in that loop against the per-client program
@@ -4818,15 +4819,18 @@ def path_lm_round_100m() -> dict:
     Checks: verify(), the read-back (dequantize, quantize), each round's
     committed model bit for bit the old model plus the plain fused fedavg
     of its stored blobs (on the card), round 0's score matrix not all
-    tied, exactly one quantize_stack and one fused_candidates launch a
-    scored cohort (plus one quantize_stack a re-quantizing packer), one
-    fused_agg a round, k + 1 dequantize and one quantize (the read-back),
-    and a cohort's rows bit for bit in calls of P, P / 2 and 1.  Lines:
+    tied, the streamed round's launches (streams_int8: each client's
+    update quantized into its row, one quantize launch, and rebuilt for
+    its scoring, one fused_candidates launch; no quantize_stack but a
+    re-quantizing packer's), one fused_agg a round, k + 1 dequantize and
+    one more quantize (the read-back), and a cohort's rows bit for bit in
+    calls of P, P / 2 and 1 of the batched trainer.  Lines:
     ``round`` (seconds and stage seconds), ``lm_train_cost`` (half the
     cohort's training in the loop form the round uses against the
     per-client program vmapped, in turns, with each one's peak memory),
-    ``kernel_path`` for quantize_stack and
-    fused_candidates at (P, D), fused_agg at (k, D) and dequantize."""
+    ``kernel_path`` for quantize into row P / 2 of a (P, Dpad) stack
+    and fused_candidates of that row alone (the streamed round's shapes),
+    fused_agg at (k, D) and dequantize."""
     import numpy as np
     import torch
     from torch.func import vmap
@@ -4837,15 +4841,14 @@ def path_lm_round_100m() -> dict:
     from repro_torch.fl.client import (
         flatten_stacked_updates, make_one_client_fn, sample_client_batches,
     )
-    from repro_torch.fl.pipeline import resolve
+    from repro_torch.fl.pipeline import resolve, streams_int8
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.fused_agg import fused_agg_kernel, fused_agg_ref
     from repro_torch.kernels.fused_score import (
         fused_candidates_kernel, fused_candidates_ref,
     )
     from repro_torch.kernels.quantize import (
-        dequantize_kernel, dequantize_ref, quantize_stack_kernel,
-        quantize_stack_ref,
+        dequantize_kernel, dequantize_ref, quantize_kernel, quantize_ref,
     )
     from repro_torch.kernels.tiling import BLOCK_D
     from repro_torch.launch.train import lm_100m_config
@@ -4881,12 +4884,15 @@ def path_lm_round_100m() -> dict:
     def drive():
         t0 = time.perf_counter()
         rt = build_runtime(adapter, ds, LM_ROUND_CFG, initial_params=warm,
-                           stages={"validator": ScoringSpy(),
-                                   "packer": spy_packer}, device="cuda")
+                           stages={"validator": scorer}, device="cuda")
+        streamed = streams_int8(adapter, rt.cfg, rt.pipeline, rt.mesh)
+        # the spies go in once the runtime has chosen its program
+        rt.pipeline.validator, rt.pipeline.packer = ScoringSpy(), spy_packer
         emit(phase="round_setup", path=path, seconds=time.perf_counter() - t0,
              dim=rt.chain.codec.dim, p_trainers=rt.p_trainers,
              q_committee=rt.q_committee, k=k)
         check(rt.chain.codec.dim == LM_ROUND_DIM, f"{path}: D")
+        check(streamed, f"{path}: the round does not stream")
         run_rounds(path, rt, rounds)
         verify(path, rt, rounds)
         readback(path, rt, rounds)
@@ -4899,9 +4905,11 @@ def path_lm_round_100m() -> dict:
         return rt
 
     counts, rt = counted(path, drive, {})
-    want = {"quantize_stack": len(scores) + sum(requantized),
-            "fused_candidates": len(scores), "fused_agg": rounds,
-            "dequantize": k + 1, "quantize": 1}
+    scored = sum(s.shape[0] for s in scores)
+    want = {"fused_candidates": scored, "fused_agg": rounds,
+            "dequantize": k + 1, "quantize": scored + 1}
+    if sum(requantized):
+        want["quantize_stack"] = sum(requantized)
     emit(phase="lm_scores", path=path, cohorts=len(scores),
          round0_scores=scores[0].tolist(),
          distinct=len(torch.unique(scores[0])),
@@ -4935,23 +4943,27 @@ def path_lm_round_100m() -> dict:
         check(out["equal"], f"{path}: calls of {n} clients differ from one "
                             f"call of {P}: {out}")
         del parts
-    # the kernels' operands at the round's shapes: the scorer's (P, D)
-    # stack, the packer's k blobs, one block's read-back
+    # the kernels' operands at the shapes the streamed round runs: one
+    # client's padded row quantized into row i of a (P, Dpad) stack, that
+    # row rebuilt alone, the packer's k blobs, one block's read-back
     base, _ = ravel_pytree(params)
     D = base.numel()
     Dpad = -(-D // BLOCK_D) * BLOCK_D
+    nblk, f32, i8 = Dpad // BLOCK_D, 4, 1
     padded = torch.zeros((Dpad,), device="cuda")
     padded[:D] = base
-    stack = torch.zeros((P, Dpad), device="cuda")
-    stack[:, :D] = whole
+    row = P // 2
+    x = torch.zeros((Dpad,), device="cuda")
+    x[:D] = whole[row]
     del whole
-    qp, sp = quantize_stack_kernel(stack)
+    qp = torch.zeros((P, Dpad), dtype=torch.int8, device="cuda")
+    sp = torch.zeros((P, nblk), device="cuda")
+    q1, s1 = qp[row:row + 1], sp[row:row + 1]
     blobs = rt.chain.update_payloads_at_round(rounds - 1, decode=False)
     qk = torch.stack([b["q"] for b in blobs])
     sk = torch.stack([b["scales"] for b in blobs])
     wk = torch.full((k,), 1.0 / k, device="cuda")
     q0, s0 = qk[0].contiguous(), sk[0].contiguous()
-    nblk, f32, i8 = Dpad // BLOCK_D, 4, 1
     loop_train = rt._local_train
     del rt, blobs
     torch.cuda.empty_cache()
@@ -4988,19 +5000,17 @@ def path_lm_round_100m() -> dict:
     del first, xs, ys, params, vmapped, forms, loop_train
     torch.cuda.empty_cache()
     kernel_path_lines(path, counts, (
-        ("quantize_stack", f"P = {P}", P * Dpad,
-         lambda: quantize_stack_kernel(stack), quantize_stack_ref, (stack,),
-         (), P * (Dpad * f32 + Dpad * i8 + nblk * f32), 6 * P * Dpad,
-         None),
-        ("fused_candidates", f"P = {P}", P * Dpad,
-         lambda: fused_candidates_kernel(padded, qp, sp),
+        ("quantize", f"row {row} of a (P = {P}) stack", Dpad,
+         lambda: quantize_kernel(x, out=(qp[row], sp[row])), quantize_ref,
+         (x,), (), Dpad * f32 + Dpad * i8 + nblk * f32, 6 * Dpad, None),
+        ("fused_candidates", f"row {row} alone", Dpad,
+         lambda: fused_candidates_kernel(padded, q1, s1),
          lambda q_, s_, b_: fused_candidates_ref(b_, q_, s_),
-         (qp, sp, padded), (1,),
-         P * Dpad * i8 + Dpad * f32 + P * nblk * f32 + P * Dpad * f32,
-         2 * P * Dpad,
+         (q1, s1, padded), (1,),
+         Dpad * i8 + Dpad * f32 + nblk * f32 + Dpad * f32, 2 * Dpad,
          lambda: torch.addcmul(padded.view(1, nblk, BLOCK_D),
-                               qp.view(P, nblk, BLOCK_D),
-                               sp.view(P, nblk, 1))),
+                               q1.view(1, nblk, BLOCK_D),
+                               s1.view(1, nblk, 1))),
         ("fused_agg", f"fedavg, K = {k}", k * Dpad,
          lambda: fused_agg_kernel(qk, sk, wk),
          lambda q_, s_: fused_agg_ref(q_, s_, wk), (qk, sk), (1,),
@@ -5011,7 +5021,9 @@ def path_lm_round_100m() -> dict:
          Dpad * i8 + nblk * f32 + Dpad * f32, Dpad,
          lambda: torch.mul(q0.view(-1, BLOCK_D), s0[:, None])),
     ))
-    del stack, qp, sp, qk, sk, padded, base
+    check(bool((qp[:row] == 0).all() and (qp[row + 1:] == 0).all()),
+          f"{path}: quantize into row {row} wrote another row")
+    del x, qp, sp, q1, s1, qk, sk, padded, base
     torch.cuda.empty_cache()
     return counts
 

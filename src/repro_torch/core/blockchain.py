@@ -19,6 +19,7 @@ payloads, layout and ``verify()`` agree.
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -33,26 +34,71 @@ UPDATE = "update"
 COMMITTEE = "committee"
 
 
-def _as_numpy(leaf: Any) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+# A device leaf reaches the hash through two pinned host buffers of this many
+# bytes, reused for the life of the process: the copy of one chunk runs while
+# the host hashes the one before, and no round allocates host memory for it.
+DIGEST_CHUNK = 64 << 20
+_staging: List[torch.Tensor] = []
+_staging_lock = threading.Lock()
 
 
-def pytree_digest(tree: Any) -> str:
-    """SHA-256 over each leaf's key path, dtype, shape and bytes (host
-    copies of device leaves).  In a recorded round the call is the span
-    ``chain.digest`` and counts the leaves' bytes (``chain_hashed_bytes``)."""
+def _np_dtype_str(dtype: torch.dtype) -> str:
+    return torch.empty((), dtype=dtype).numpy().dtype.str
+
+
+def _hash_device_bytes(h, flat: torch.Tensor, chunk: int) -> None:
+    """Feed ``flat`` (a contiguous uint8 CUDA tensor) to ``h`` in order,
+    chunk by chunk through the pinned buffers, copies ahead of the hash."""
+    n = flat.numel()
+    with _staging_lock, torch.cuda.device(flat.device):
+        if not _staging or _staging[0].numel() < chunk:
+            _staging[:] = [torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+                           for _ in range(2)]
+        events = [torch.cuda.Event(), torch.cuda.Event()]
+        starts = list(range(0, n, chunk))
+
+        def issue(i: int) -> None:
+            a = starts[i]
+            b = min(a + chunk, n)
+            _staging[i % 2][:b - a].copy_(flat[a:b], non_blocking=True)
+            events[i % 2].record()
+
+        for i in range(min(2, len(starts))):
+            issue(i)
+        for i, a in enumerate(starts):
+            events[i % 2].synchronize()
+            h.update(_staging[i % 2][:min(chunk, n - a)].numpy())
+            if i + 2 < len(starts):
+                issue(i + 2)
+
+
+def _hash_leaf(h, leaf: Any, chunk: int) -> int:
+    """Hash one leaf's dtype, shape and C-order bytes; returns its bytes."""
+    if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+        h.update(_np_dtype_str(leaf.dtype).encode())
+        h.update(str(tuple(leaf.shape)).encode())
+        flat = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        _hash_device_bytes(h, flat, chunk)
+        return flat.numel()
+    arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+           else np.asarray(leaf))
+    h.update(arr.dtype.str.encode())
+    h.update(str(arr.shape).encode())
+    h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+    return arr.nbytes
+
+
+def pytree_digest(tree: Any, chunk: int = DIGEST_CHUNK) -> str:
+    """SHA-256 over each leaf's key path, dtype, shape and bytes (device
+    leaves streamed through pinned host buffers, ``chunk`` bytes at a time).
+    In a recorded round the call is the span ``chain.digest`` and counts the
+    leaves' bytes (``chain_hashed_bytes``)."""
     with span("chain.digest"):
         h = hashlib.sha256()
         hashed = 0
         for path, leaf in tree_paths(tree):
-            arr = _as_numpy(leaf)
             h.update(repr(path).encode())
-            h.update(arr.dtype.str.encode())
-            h.update(str(arr.shape).encode())
-            h.update(np.ascontiguousarray(arr).tobytes())
-            hashed += arr.nbytes
+            hashed += _hash_leaf(h, leaf, chunk)
         count("chain_hashed_bytes", hashed)
         return h.hexdigest()
 
@@ -304,7 +350,8 @@ class Chain:
     def storage_bytes(self) -> int:
         """Approximate resident payload bytes (§IV.D)."""
         return sum(
-            _as_numpy(leaf).nbytes
+            (leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
+             else np.asarray(leaf).nbytes)
             for blk in self.blocks if blk.payload is not None
             for leaf in tree_leaves(blk.payload)
         )

@@ -15,7 +15,12 @@ that program batches its products over P, and PyTorch rounds them
 differently at another P.)  Committee validation scores the (P updates x
 Q members) accuracy matrix: each candidate ``params + update_i`` is built
 once and all Q member batches run through it in one batched forward.  The
-int8 scorer does the same for the chain codec's int8 view of each update.
+int8 scorer does the same for the chain codec's int8 view of each update:
+from an f32 stack it quantizes and rebuilds the cohort in one launch each
+(the CNN's program), and from a cohort's int8 rows (``score.rows``) it
+rebuilds, scores and drops one candidate at a time, so that the round of
+a large model never holds P f32 candidates (the per-client round that
+``repro_torch.fl.pipeline`` streams).
 
 The sharded round engine (``repro_torch.fl.sharded``) runs these same
 programs on each rank's block of the cohort: ``make_sharded_*`` build
@@ -36,7 +41,7 @@ from repro_torch.device import to_device
 from repro_torch.fl.adapter import ModelAdapter
 from repro_torch.kernels.ops import candidates_from_quantized, quantize_stack
 from repro_torch.launch.shardings import round_engine_pspecs
-from repro_torch.spans import count, span
+from repro_torch.spans import count, note_live_bytes, span
 from repro_torch.tree import ravel_pytree, tree_leaves, tree_map, tree_stack
 
 
@@ -163,7 +168,13 @@ def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
     per-row ``(q, scales)`` come back with the scores: they ARE the chain
     blobs, so the packer reuses them.  ``unravel`` is the chain codec's, so
     a scored candidate decodes exactly like a stored blob.  Port of the
-    reference's ``_int8_score_program`` / ``make_score_from_int8_fn``."""
+    reference's ``_int8_score_program`` / ``make_score_from_int8_fn``.
+
+    ``score.rows(params, q, scales, D, vx, vy)`` scores rows already
+    quantized (a streamed cohort's stack): each candidate is rebuilt from
+    its row alone (the span ``validate.rebuild``), scored and dropped.
+    The rebuild is elementwise, so the scores are the batched program's
+    bit for bit, and one f32 candidate is live at a time."""
     per_member = vmap(adapter.accuracy, in_dims=(None, 0, 0))
 
     @torch.no_grad()
@@ -175,6 +186,21 @@ def make_score_from_int8_fn(adapter: ModelAdapter, unravel):
                                   for i in range(cands.shape[0])])
         return scores, q, s
 
+    @torch.no_grad()
+    def score_rows(params, q, s, D, vx, vy):
+        base = ravel_pytree(params)[0]
+        rows = []
+        for i in range(q.shape[0]):
+            with span("validate.rebuild", device=True):
+                cand = candidates_from_quantized(base, q[i:i + 1],
+                                                 s[i:i + 1], D)[0]
+                note_live_bytes()
+            with span("validate.score", device=True):
+                rows.append(per_member(unravel(cand), vx, vy))
+            del cand
+        return torch.stack(rows)
+
+    score.rows = score_rows
     return score
 
 

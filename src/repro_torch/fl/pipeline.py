@@ -20,6 +20,18 @@ Port of ``repro/fl/pipeline.py``:
   ``repro_torch.fl.async_engine`` schedules the halves so that one
   cohort's training runs on the card while the host finishes the
   previous cohort's committee work.
+* The streamed round: ``ctx.stream_int8``, which the runtime sets once,
+  at build, where ``streams_int8`` holds (an adapter without
+  ``stacked_loss`` on a flat, single-device int8 chain scored, packed and
+  aggregated by ``committee_int8``, ``top_k_int8`` and ``fused_int8``).
+  The trainer trains one client at a time, poisons its
+  update if the trainer is malicious, and quantizes it into its row of
+  the cohort's int8 stack (the spans ``train.client`` and
+  ``train.quantize``); a cohort's updates are then ``Int8Row``s of that
+  stack, and the int8 validator rebuilds and scores one candidate at a
+  time from it.  No (P, D) f32 tensor exists, and the rows, scores,
+  blobs and chain are the batched program's bit for bit (the codec's
+  tiles and the rebuild are row-local).
 
 Registered here: the BFLC stages ``active``, ``local_sgd``,
 ``committee``, ``committee_int8``, ``top_k``, ``top_k_int8``, ``pytree``,
@@ -34,7 +46,8 @@ and ``fused_int8_sharded`` (``repro_torch.fl`` imports both).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Protocol, Set
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Protocol, Set)
 
 import numpy as np
 import torch
@@ -49,8 +62,20 @@ from repro_torch.core.attacks import ATTACKS
 from repro_torch.core.consensus import CommitteeConsensus, ValidationRecord
 from repro_torch.core.incentive import distribute_rewards
 from repro_torch.device import HostCopy, synchronize, to_device
-from repro_torch.spans import span, stage
-from repro_torch.tree import tree_stack, tree_unstack
+from repro_torch.spans import note_live_bytes, span, stage
+from repro_torch.tree import tree_leaves, tree_stack, tree_unstack
+
+
+class Int8Row(NamedTuple):
+    """Row ``i`` of a cohort's int8 stack: q (K, Dpad) int8, scales
+    (K, Dpad // BLOCK_D) f32, the update's true dimension ``d``.  A streamed
+    cohort's updates are these, and so are the int8 validator's cached
+    rows (``ctx.row_quant``)."""
+
+    q: torch.Tensor
+    scales: torch.Tensor
+    i: int
+    d: int
 
 
 # ----------------------------------------------------------------------
@@ -78,6 +103,8 @@ class RoundContext:
     # batched helpers (built once by the runtime, shared across rounds)
     community: Any = None                  # DeviceCommunity: data's shards
     local_train_fn: Any = None
+    client_train_fn: Any = None            # one client's local SGD program
+    stream_int8: bool = False              # the streamed round (module doc)
     score_matrix_fn: Any = None
     int8_score_fn: Any = None              # fused int8 scorer
     collusion: Any = None                  # CollusionPolicy
@@ -93,9 +120,9 @@ class RoundContext:
     # two-tier round state: a HierState, built per round by the runtime
     # when cfg.tiers > 1 (see repro_torch.fl.hier)
     hier: Any = None
-    # uploader -> (q, scales, row, d): the int8 validator's per-row
-    # chain-codec quantization, cached so the packer reuses the rows
-    # instead of re-quantizing the packed stack
+    # uploader -> Int8Row: the int8 validator's per-row chain-codec
+    # quantization, cached so the packer reuses the rows instead of
+    # re-quantizing the packed stack
     row_quant: Dict[int, Any] = field(default_factory=dict)
     # per-cohort state (overwritten each cohort; the async engine stages
     # these between its cohort ring slots and the shared context)
@@ -402,20 +429,59 @@ def sample_member_batches(ctx: RoundContext, members: List[int]):
     return store.gather(to_device(idx, ctx.device))
 
 
+def poison_update(ctx: RoundContext, update: Any) -> Any:
+    """A malicious trainer's update under the configured attack (its draws
+    from the host rng)."""
+    cfg, rng = ctx.cfg, ctx.rng
+    attack = ATTACKS[cfg.attack]
+    if cfg.attack == "gaussian":
+        return attack(rng, update, cfg.attack_sigma, ref=ctx.params)
+    return attack(rng, update)
+
+
 def poison_cohort_updates(ctx: RoundContext, updates: List[Any]) -> List[int]:
     """Per-node attack injection for malicious trainers (in place).
     Returns the poisoned indices, also recorded in ``ctx.cohort_poisoned``."""
-    cfg, rng = ctx.cfg, ctx.rng
-    attack = ATTACKS[cfg.attack]
     poisoned = []
     for idx, node_id in enumerate(ctx.trainers):
         if ctx.is_malicious(node_id):
-            updates[idx] = attack(
-                rng, updates[idx], cfg.attack_sigma, ref=ctx.params
-            ) if cfg.attack == "gaussian" else attack(rng, updates[idx])
+            updates[idx] = poison_update(ctx, updates[idx])
             poisoned.append(idx)
     ctx.cohort_poisoned = poisoned
     return poisoned
+
+
+def train_streamed(ctx: RoundContext, xs, ys) -> List[Int8Row]:
+    """The streamed cohort (module doc): each client trained in turn by
+    ``ctx.client_train_fn`` (the span ``train.client``), poisoned if its
+    trainer is malicious, flattened in the chain's leaf order and
+    quantized into its row of one (P, Dpad) int8 stack (``train.quantize``),
+    then dropped.  The host rng draws come in trainer order, as the
+    batched trainer's.  Returns the cohort's ``Int8Row``s."""
+    from repro_torch.kernels.ops import padded_dim, quantize_into
+    from repro_torch.kernels.tiling import BLOCK_D
+
+    D = ctx.chain.codec.dim
+    P, dpad = len(ctx.trainers), padded_dim(D)
+    q = torch.empty((P, dpad), dtype=torch.int8, device=ctx.device)
+    s = torch.empty((P, dpad // BLOCK_D), dtype=torch.float32,
+                    device=ctx.device)
+    poisoned = []
+    for i, node_id in enumerate(ctx.trainers):
+        with span("train.client", device=True):
+            update = ctx.client_train_fn(ctx.params, xs[i], ys[i])
+            note_live_bytes()
+        if ctx.is_malicious(node_id):
+            update = poison_update(ctx, update)
+            poisoned.append(i)
+        with span("train.quantize", device=True):
+            flat = torch.cat([leaf.reshape(-1).to(torch.float32)
+                              for leaf in tree_leaves(update)])
+            del update
+            quantize_into(flat, q[i], s[i])
+            del flat
+    ctx.cohort_poisoned = poisoned
+    return [Int8Row(q, s, i, D) for i in range(P)]
 
 
 class LocalSGDTrainer:
@@ -426,15 +492,22 @@ class LocalSGDTrainer:
     the cohort's training into ``ctx.train_inflight`` without waiting for
     it; ``finalize`` unstacks the updates and poisons the malicious
     trainers' (the attacks go through host numpy, so a poisoned cohort
-    waits for its training there)."""
+    waits for its training there).  In the streamed round ``dispatch``
+    does it all, client by client (``train_streamed``), and ``finalize``
+    has nothing left to do."""
 
     def dispatch(self, ctx: RoundContext) -> None:
         xs, ys = sample_cohort_batches(ctx)
-        with span("train.steps", device=True):
-            ctx.train_inflight = ctx.local_train_fn(ctx.params, xs, ys)
         ctx.cohort_stacked = None          # one device: no sharded stack
+        with span("train.steps", device=True):
+            if ctx.stream_int8:
+                ctx.cohort_updates = train_streamed(ctx, xs, ys)
+                return
+            ctx.train_inflight = ctx.local_train_fn(ctx.params, xs, ys)
 
     def finalize(self, ctx: RoundContext) -> None:
+        if ctx.stream_int8:
+            return
         stacked = ctx.train_inflight
         ctx.train_inflight = None
         updates = tree_unstack(stacked, len(ctx.trainers))
@@ -520,21 +593,22 @@ def cache_row_quant(ctx: RoundContext, q, s, d: int) -> None:
     quantizing packer would store (same tiling), so the packer stacks the
     cached rows instead of quantizing again."""
     for i, uploader in enumerate(ctx.trainers):
-        ctx.row_quant[uploader] = (q, s, i, d)
+        ctx.row_quant[uploader] = Int8Row(q, s, i, d)
 
 
 def cached_row_stack(ctx: RoundContext, ids: Optional[List[int]] = None):
-    """(q, s, d) stacked from the row-quant cache for the given uploaders
-    (default: the packed set), or None when any row is missing (e.g. the
-    f32 validator ran, so nothing was quantized yet)."""
+    """(q, s, d) stacked from the int8 rows of the given uploaders
+    (default: the packed set): the row-quant cache's, else a streamed
+    round's updates, which are their rows.  None when any row is missing
+    (e.g. the f32 validator ran, so nothing was quantized yet)."""
     ids = ctx.packed_ids if ids is None else ids
     cache = ctx.row_quant
-    if not cache or any(u not in cache for u in ids):
+    entries = [cache[u] if u in cache else ctx.updates.get(u) for u in ids]
+    if not entries or not all(isinstance(e, Int8Row) for e in entries):
         return None
-    entries = [cache[u] for u in ids]
-    q = torch.stack([e[0][e[2]] for e in entries])
-    s = torch.stack([e[1][e[2]] for e in entries])
-    return q, s, entries[0][3]
+    q = torch.stack([e.q[e.i] for e in entries])
+    s = torch.stack([e.scales[e.i] for e in entries])
+    return q, s, entries[0].d
 
 
 class Int8CommitteeValidator(CommitteeValidator):
@@ -542,7 +616,9 @@ class Int8CommitteeValidator(CommitteeValidator):
     update (``stages={"validator": "committee_int8"}``, with
     ``quantize_chain=True``): the fused candidates kernel rebuilds every
     candidate from its quantized row in one read, so the committee scores
-    exactly the blob the packer stores, and the packer reuses the rows."""
+    exactly the blob the packer stores, and the packer reuses the rows.
+    A streamed cohort comes as its int8 rows, which are scored as they
+    are, one candidate rebuilt at a time (``score.rows``)."""
 
     def _scores_device(self, ctx: RoundContext) -> torch.Tensor:
         if ctx.int8_score_fn is None:
@@ -551,6 +627,12 @@ class Int8CommitteeValidator(CommitteeValidator):
                 "with quantize_chain=True (the scorer shares the chain "
                 "codec's unravel structure)"
             )
+        if ctx.stream_int8:
+            first = ctx.cohort_updates[0]
+            scores = ctx.int8_score_fn.rows(ctx.params, first.q, first.scales,
+                                            first.d, ctx.val_x, ctx.val_y)
+            cache_row_quant(ctx, first.q, first.scales, first.d)
+            return scores
         stack, _ = flatten_updates(ctx.cohort_updates)
         scores, q, s = ctx.int8_score_fn(ctx.params, stack, ctx.val_x,
                                          ctx.val_y)
@@ -686,6 +768,21 @@ def aggregate_fused_int8(ctx: RoundContext) -> None:
         q, s, d, method=cfg.aggregation, weights=ctx.weights, trim=cfg.trim,
     ))
     _commit_aggregate(ctx, agg)
+
+
+def streams_int8(adapter, cfg, pipeline, mesh=None) -> bool:
+    """Whether a runtime's rounds stream (module doc): an adapter without
+    ``stacked_loss`` (whose clients train one call each anyway) on a flat
+    int8 chain, one device, scored by the int8 validator and packed and
+    aggregated by the stages that read a streamed cohort's int8 rows
+    (``top_k_int8``, ``fused_int8``); every other stage set takes f32
+    update trees."""
+    return (adapter.stacked_loss is None
+            and bool(getattr(cfg, "quantize_chain", False))
+            and getattr(cfg, "tiers", 1) == 1 and mesh is None
+            and isinstance(pipeline.validator, Int8CommitteeValidator)
+            and pipeline.packer is pack_top_k_int8
+            and pipeline.aggregator is aggregate_fused_int8)
 
 
 def fill_committee(manager, committee: List[int], q_committee: int) -> List[int]:

@@ -23,6 +23,10 @@ the ranks.
 
 Each round is recorded (``repro_torch.spans``): its ``stage_timings``
 entry carries the round's spans and counters besides the stage seconds.
+
+Where ``repro_torch.fl.pipeline.streams_int8`` holds at build, the rounds
+stream each client's update into its int8 row as it is trained; they are
+the batched program's bits.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.fl.client import (
     DeviceCommunity,
     make_eval_fn,
     make_local_train_fn,
+    make_one_client_fn,
     make_score_from_int8_fn,
     make_score_matrix_fn,
     make_sharded_local_train_fn,
@@ -56,6 +61,7 @@ from repro_torch.fl.pipeline import (
     build_pipeline,
     default_stage_names,
     fill_committee,
+    streams_int8,
 )
 from repro_torch.kernels.ops import (
     make_aggregate_quantized_sharded,
@@ -219,6 +225,8 @@ class BFLCRuntime:
         self.community = DeviceCommunity(dataset, self.device)
         # batched helpers
         self._local_train = make_local_train_fn(adapter, cfg.local_lr, cfg.momentum)
+        self._client_train = make_one_client_fn(adapter, cfg.local_lr,
+                                                cfg.momentum)
         self._score_matrix = make_score_matrix_fn(adapter)
         # the int8 scorer (committee_int8) shares the chain codec's unravel
         # structure, so scored candidates decode exactly like stored blobs
@@ -270,6 +278,9 @@ class BFLCRuntime:
         else:
             self.pipeline = build_pipeline(default_stage_names(cfg, mesh),
                                            stages)
+        # the streamed round (repro_torch.fl.pipeline): each client's
+        # update quantized into its int8 row as soon as it is trained
+        self._streamed = streams_int8(adapter, cfg, self.pipeline, mesh)
         self.schedule = schedule
         if schedule == "async":
             # the same stage set under another runner: bit-identical
@@ -309,6 +320,8 @@ class BFLCRuntime:
             p_trainers=self.p_trainers,
             community=self.community,
             local_train_fn=self._local_train,
+            client_train_fn=self._client_train,
+            stream_int8=self._streamed,
             score_matrix_fn=self._score_matrix,
             int8_score_fn=self._int8_score,
             collusion=self._collusion,

@@ -11,6 +11,7 @@ so their stacks go in unpadded.
   fedavg_agg / cwmed / trimmed_mean                     its three kernels
   quantize(x) / dequantize(q, scales, D)                codec, one vector
   quantize_stack(stack)                                 round codec, K rows
+  quantize_into(x, q_row, s_row)                        one row of a stack
   aggregate_quantized(q, scales, D, method=...)         fused int8 path
   candidates_from_quantized(base, q, scales, D)         int8 scoring path
   Int8UpdateCodec                                       chain payload codec
@@ -128,6 +129,16 @@ def quantize_stack(stack: torch.Tensor):
     padded, _ = _pad_to_block(stack.to(torch.float32))
     q, s = quantize_stack_kernel(padded)
     return q, s, D
+
+
+def quantize_into(x: torch.Tensor, q_row: torch.Tensor,
+                  s_row: torch.Tensor) -> None:
+    """(D,) f32 quantized into a preallocated row: q_row (Dpad,) int8 and
+    s_row (Dpad // BLOCK_D,) f32, e.g. row i of a round's stack.  Tiles are
+    row-local, so the row holds the bits ``quantize_stack`` gives it in a
+    stack of any K."""
+    padded, _ = _pad_to_block(x.to(torch.float32))
+    quantize_kernel(padded, out=(q_row, s_row))
 
 
 def aggregate_quantized(

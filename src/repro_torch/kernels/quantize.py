@@ -68,11 +68,13 @@ def _check_tiled(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str):
         )
 
 
-def _launch_quantize_rows(stack: torch.Tensor):
+def _launch_quantize_rows(stack: torch.Tensor, q=None, s=None):
     K, D = stack.shape
     _build.require_cuda(stack, vector_loaded=(stack,))
-    q = torch.empty((K, D), dtype=torch.int8, device=stack.device)
-    s = torch.empty((K, D // BLOCK_D), dtype=torch.float32, device=stack.device)
+    if q is None:
+        q = torch.empty((K, D), dtype=torch.int8, device=stack.device)
+        s = torch.empty((K, D // BLOCK_D), dtype=torch.float32,
+                        device=stack.device)
     lib = _build.load("quantize")
     code = lib.repro_quantize_rows(
         stack.data_ptr(), q.data_ptr(), s.data_ptr(), K, D // BLOCK_D,
@@ -95,15 +97,32 @@ def quantize_stack_kernel(stack: torch.Tensor):
 quantize_stack_kernel.launches = 0
 
 
-def quantize_kernel(x: torch.Tensor):
+def quantize_kernel(x: torch.Tensor, out=None):
     """(D,) f32 -> (q (D,) int8, scales (D // BLOCK_D,) f32): the K = 1
-    launch of the stack kernel."""
+    launch of the stack kernel.  ``out``: a (q, scales) pair of that shape
+    (contiguous rows of a stack, say) written in place and returned."""
     _check_tiled(x, torch.float32, 1, "quantize_kernel")
+    if out is not None:
+        q, s = out
+        if (q.shape != x.shape or q.dtype != torch.int8
+                or s.shape != (x.shape[0] // BLOCK_D,)
+                or s.dtype != torch.float32 or not q.is_contiguous()
+                or not s.is_contiguous()):
+            raise ValueError(
+                f"quantize_kernel: out {tuple(q.shape)} {q.dtype}, "
+                f"{tuple(s.shape)} {s.dtype} does not fit x {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return quantize_ref(x)
-    q, s = _launch_quantize_rows(x.reshape(1, -1))
+        if out is None:
+            return quantize_ref(x)
+        rq, rs = quantize_ref(x)
+        return q.copy_(rq), s.copy_(rs)
+    if out is None:
+        q, s = _launch_quantize_rows(x.reshape(1, -1))
+        q, s = q[0], s[0]
+    else:
+        _launch_quantize_rows(x.reshape(1, -1), q.view(1, -1), s.view(1, -1))
     quantize_kernel.launches += 1
-    return q[0], s[0]
+    return q, s
 
 
 quantize_kernel.launches = 0

@@ -14,7 +14,10 @@ where it happens:
   time (the span's device work and any idle time between its launches)
   is its ``device_s``.  No span waits for the device: the events are read
   once a round (``Recorder.entry``), after the round's last synchronize;
-* ``count(name, n)`` adds ``n`` to one of the round's integer counters.
+* ``count(name, n)`` adds ``n`` to one of the round's integer counters;
+  ``note_live_bytes()`` keeps in the counter ``live_bytes`` the most
+  device memory the allocator has held at its calls
+  (``torch.cuda.memory_allocated``; 0 off CUDA).
 
 While a torch profiler is active, a span also opens
 ``torch.profiler.record_function("bflc." + name)``, so the profiler's
@@ -196,3 +199,14 @@ def count(name: str, n: int) -> None:
     rec = _ACTIVE.get()
     if rec is not None:
         rec.counts[name] = rec.counts.get(name, 0) + int(n)
+
+
+def note_live_bytes() -> None:
+    """The round's counter ``live_bytes``: the most device memory the
+    caching allocator held at any call, read from
+    ``torch.cuda.memory_allocated`` (0 off CUDA).  The allocator's peak
+    statistics are neither read nor reset."""
+    rec = _ACTIVE.get()
+    if rec is not None:
+        held = torch.cuda.memory_allocated(rec.device) if rec.cuda else 0
+        rec.counts["live_bytes"] = max(rec.counts.get("live_bytes", 0), held)

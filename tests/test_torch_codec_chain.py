@@ -175,3 +175,34 @@ def test_digest_covers_key_paths_dtype_and_values():
     assert pytree_digest(a) != pytree_digest({"x": torch.ones(2), "y": torch.zeros(3)})
     assert pytree_digest(a) != pytree_digest({"x": torch.zeros(3, dtype=torch.float64),
                                               "y": torch.ones(2)})
+
+
+def _tobytes_digest(tree):
+    """The digest as the benchmark's plain reference defines it: each
+    leaf's key path, numpy dtype string, shape and ``tobytes()``."""
+    import hashlib
+
+    from repro_torch.tree import tree_paths
+
+    h = hashlib.sha256()
+    for path, leaf in tree_paths(tree):
+        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+               else np.asarray(leaf))
+        h.update(repr(path).encode())
+        h.update(arr.dtype.str.encode())
+        h.update(str(arr.shape).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def digest_tree():
+    """Every kind of leaf a chain stores: 0-d, strided, int8, bool, numpy."""
+    g = torch.Generator().manual_seed(0)
+    return {"w": torch.randn(5, 7, generator=g).t(), "s": torch.tensor(2.5),
+            "q": torch.randint(-127, 128, (3, 2048), generator=g).to(torch.int8),
+            "m": torch.rand(9, generator=g) > 0.5, "d": np.int64(6145),
+            "e": torch.zeros(0, 4), "b": torch.arange(6, dtype=torch.float64)}
+
+
+def test_digest_hashes_each_leaf_as_the_reference_does():
+    assert pytree_digest(digest_tree()) == _tobytes_digest(digest_tree())

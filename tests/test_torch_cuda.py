@@ -765,3 +765,19 @@ def test_client_gemm_path_reads_16_bytes_only_where_aligned(cuda):
     assert "A along k, B along n 16 B" in client_gemm_path(off, b)
     odd = torch.empty((2, 64, 287), device=cuda)[:, :, :286]     # rows of 287
     assert "A along k," in client_gemm_path(odd, torch.empty((2, 286, 64), device=cuda))
+
+
+@pytest.mark.parametrize("chunk", (1, 1000, 4096, 64 << 20))
+def test_chain_digest_of_device_leaves_streams_the_host_bytes(cuda, chunk):
+    """Device leaves go to the hash through the pinned buffers, ``chunk``
+    bytes at a time: the digest is the one of the same leaves on the host."""
+    from repro_torch.core.blockchain import pytree_digest
+
+    g = torch.Generator().manual_seed(chunk)
+    host = {"w": torch.randn(300, 7, generator=g).t(), "s": torch.tensor(2.5),
+            "q": torch.randint(-127, 128, (3, 2048), generator=g).to(torch.int8),
+            "m": torch.rand(9, generator=g) > 0.5, "e": torch.zeros(0, 4),
+            "b": torch.arange(6, dtype=torch.float64)}
+    dev = {k: v.to(cuda) for k, v in host.items()}
+    dev["w"] = dev["w"].t().contiguous().t()      # strided on the card too
+    assert pytree_digest(dev, chunk) == pytree_digest(host)
